@@ -1,0 +1,99 @@
+"""genjax_torch: the PyTorch / CUDA port of genjax_tpu for one NVIDIA
+H100, slice by slice. This slice is the main path: the ``@gen`` language,
+the GFI data types, importance sampling / SIR and particle filtering with
+systematic resampling, with the two kernels of that path written by hand
+for Hopper (``ops/``). The package imports ``torch`` and never ``jax``.
+"""
+
+from genjax_torch.core.compiler.interpreters.incremental import (
+    Diff,
+    NoChange,
+    UnknownChange,
+)
+from genjax_torch.core.compiler.staging import (
+    FlagOp,
+    empty_trace,
+    multi_switch,
+    tree_choose,
+)
+from genjax_torch.core.pytree import Closure, Const, Pytree
+from genjax_torch.gfi.choice_map import (
+    C,
+    ChoiceMap,
+    ChoiceMapBuilder,
+    ChoiceMapNoValueAtAddress,
+)
+from genjax_torch.gfi.concepts import (
+    Argdiffs,
+    EditRequest,
+    NotSupportedEditRequest,
+    PrimitiveEditRequest,
+    Retdiff,
+    Score,
+    Weight,
+)
+from genjax_torch.gfi.gfn import (
+    GenerativeFunction,
+    GenerativeFunctionClosure,
+    Trace,
+)
+from genjax_torch.gfi.mask import Mask
+from genjax_torch.gfi.requests import Regenerate, Update
+from genjax_torch.gfi.selection import Selection
+from genjax_torch.lang.distributions import *  # noqa: F401,F403
+from genjax_torch.lang.distributions import __all__ as _dist_all
+from genjax_torch.lang.static import (
+    AddressReuse,
+    Fn,
+    MissingAddress,
+    StaticTrace,
+    gen,
+)
+from genjax_torch.core import random  # noqa: E402
+from genjax_torch import inference, ops  # noqa: E402,F401
+
+#: ``S``: the selection builder.
+S = Selection
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "AddressReuse",
+    "Argdiffs",
+    "C",
+    "ChoiceMap",
+    "ChoiceMapBuilder",
+    "ChoiceMapNoValueAtAddress",
+    "Closure",
+    "Const",
+    "Diff",
+    "EditRequest",
+    "FlagOp",
+    "Fn",
+    "GenerativeFunction",
+    "GenerativeFunctionClosure",
+    "Mask",
+    "MissingAddress",
+    "NoChange",
+    "NotSupportedEditRequest",
+    "PrimitiveEditRequest",
+    "Pytree",
+    "Regenerate",
+    "Retdiff",
+    "S",
+    "Score",
+    "Selection",
+    "StaticTrace",
+    "Trace",
+    "UnknownChange",
+    "Update",
+    "Weight",
+    "empty_trace",
+    "gen",
+    "inference",
+    "multi_switch",
+    "ops",
+    "random",
+    "tree_choose",
+    *_dist_all,
+]

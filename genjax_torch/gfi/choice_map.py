@@ -1,0 +1,516 @@
+"""``ChoiceMap``: a hierarchical map from addresses to random choices, an
+algebra closed under filter / merge / mask / extend / switch
+(counterpart of ``genjax_tpu/gfi/choice_map.py``).
+
+Every tensor is concrete in eager PyTorch, so a dynamic-index lookup on
+an :class:`Indexed` node with a Python-int address folds to a plain
+slice; a tensor address lowers to ``argmax`` + gather + mask as in JAX.
+``lanes_leading`` and ``partition_values`` serve ``vmap`` and the
+gradient samplers and are not ported yet.
+"""
+
+from __future__ import annotations
+
+import abc
+from typing import Any, Iterable, Mapping, Sequence
+
+import torch
+
+from genjax_torch.core.pytree import Pytree, tree_leaves, tree_map
+from genjax_torch.core.typing import Flag
+from genjax_torch.gfi.mask import Mask
+from genjax_torch.gfi.selection import AllSel, NoneSel, Selection, addr_tuple
+
+__all__ = [
+    "ChoiceMap",
+    "ChoiceMapBuilder",
+    "ChoiceMapNoValueAtAddress",
+    "ChmSel",
+    "C",
+]
+
+
+class ChoiceMapNoValueAtAddress(Exception):
+    """Raised when ``chm[addr]`` finds no value at ``addr``."""
+
+
+def _is_static_comp(comp) -> bool:
+    return isinstance(comp, (str, int))
+
+
+def _t(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+
+
+def _check_flag(flag, where: str):
+    """A non-Selection ``filter``/``mask`` argument must be a boolean
+    flag: a Python bool or a bool tensor."""
+    if isinstance(flag, bool):
+        return flag
+    if isinstance(flag, torch.Tensor) and flag.dtype == torch.bool:
+        return flag
+    raise TypeError(
+        f"ChoiceMap.{where} expects a Selection or a boolean flag, got "
+        f"{type(flag).__name__}: {flag!r}."
+    )
+
+
+class ChoiceMap(Pytree):
+    """Abstract choice-map node."""
+
+    @abc.abstractmethod
+    def get_value(self) -> Any:
+        """The value at this node (possibly a :class:`Mask`), or ``None``."""
+
+    @abc.abstractmethod
+    def get_inner_map(self, comp) -> "ChoiceMap":
+        """Descend one address component."""
+
+    def filter(self, selection: Selection | Flag) -> "ChoiceMap":
+        if not isinstance(selection, Selection):
+            selection = AllSel().mask(_check_flag(selection, "filter"))
+        if isinstance(selection, AllSel):
+            return self
+        if isinstance(selection, NoneSel):
+            return ChoiceMap.empty()
+        if self.static_is_empty():
+            return self
+        return Filtered(self, selection)
+
+    def get_submap(self, *addresses) -> "ChoiceMap":
+        chm = self
+        for a in addresses:
+            for comp in addr_tuple(a):
+                chm = chm.get_inner_map(comp)
+        return chm
+
+    def __call__(self, *addresses) -> "ChoiceMap":
+        return self.get_submap(*addresses)
+
+    def __getitem__(self, addr):
+        v = self.get_submap(addr).get_value()
+        if v is None:
+            raise ChoiceMapNoValueAtAddress(addr)
+        return v
+
+    def __contains__(self, addr) -> bool:
+        return self.has_value_at(addr)
+
+    def has_value(self) -> bool:
+        return self.get_value() is not None
+
+    def has_value_at(self, addr) -> bool:
+        return self.get_submap(addr).has_value()
+
+    def static_is_empty(self) -> bool:
+        return False
+
+    def mask(self, flag: Flag) -> "ChoiceMap":
+        return self.filter(flag)
+
+    def extend(self, *addrs) -> "ChoiceMap":
+        """Nest under an address prefix: static components build trie
+        nodes, tensor components :class:`Indexed` nodes, and the full
+        slice ``:`` a canonical :class:`Indexed` over all lanes."""
+        chm = self
+        comps: list = []
+        for a in addrs:
+            comps.extend(addr_tuple(a))
+        for comp in reversed(comps):
+            if _is_static_comp(comp):
+                chm = Static.build({comp: chm})
+            elif isinstance(comp, slice):
+                if comp != slice(None):
+                    raise ValueError(
+                        "only the full slice ':' is a valid address "
+                        f"component, got {comp!r}"
+                    )
+                chm = Indexed(chm, None)
+            else:
+                chm = Indexed(chm, _t(comp))
+        return chm
+
+    def __or__(self, other: "ChoiceMap") -> "ChoiceMap":
+        if self.static_is_empty():
+            return other
+        if other.static_is_empty():
+            return self
+        return Or(self, other)
+
+    def __and__(self, other: "ChoiceMap") -> "ChoiceMap":
+        return other.filter(self.get_selection())
+
+    def get_selection(self) -> Selection:
+        return ChmSel(self)
+
+    @staticmethod
+    def empty() -> "ChoiceMap":
+        return Empty()
+
+    @staticmethod
+    def choice(v: Any) -> "ChoiceMap":
+        return Choice(v)
+
+    @staticmethod
+    def entry(v: Any, *addrs) -> "ChoiceMap":
+        if isinstance(v, ChoiceMap):
+            chm = v
+        elif isinstance(v, Mapping):
+            chm = ChoiceMap.d(v)
+        else:
+            chm = Choice(v)
+        return chm.extend(*addrs)
+
+    @staticmethod
+    def from_mapping(pairs: Iterable[tuple]) -> "ChoiceMap":
+        chm: ChoiceMap = Empty()
+        for addr, v in pairs:
+            chm = chm | ChoiceMap.entry(v, *addr_tuple(addr))
+        return chm
+
+    @staticmethod
+    def d(mapping: Mapping) -> "ChoiceMap":
+        return ChoiceMap.from_mapping(mapping.items())
+
+    @staticmethod
+    def kw(**kwargs) -> "ChoiceMap":
+        return ChoiceMap.d(kwargs)
+
+    @staticmethod
+    def switch(idx, chms: Sequence["ChoiceMap"]) -> "ChoiceMap":
+        """Branch-select: values from ``chms[idx]``, others masked out."""
+        if isinstance(idx, int):
+            return chms[idx]
+        return Switch(_t(idx), tuple(chms))
+
+    def invalid_subset(self, gen_fn, args: tuple) -> "ChoiceMap | None":
+        """The part of this map whose addresses ``gen_fn`` does not visit
+        on ``args``, or ``None`` when everything matches."""
+        from genjax_torch.core.compiler.staging import empty_trace
+
+        shape_chm = empty_trace(gen_fn, args).get_choices()
+        invalid = self.filter(~shape_chm.get_selection())
+
+        def has_any_value(chm) -> bool:
+            if chm.static_is_empty():
+                return False
+            v = chm.get_value()
+            if isinstance(v, Mask):
+                flag = v.flag
+                return bool(_t(flag).any())
+            if v is not None:
+                return True
+            if isinstance(chm, Static):
+                return any(has_any_value(s) for s in chm.submaps)
+            if isinstance(chm, (Indexed, Filtered)):
+                return has_any_value(chm.inner)
+            if isinstance(chm, Or):
+                return has_any_value(chm.left) or has_any_value(chm.right)
+            return True
+
+        return invalid if has_any_value(invalid) else None
+
+    @property
+    def at(self) -> "ChoiceMapBuilder":
+        return ChoiceMapBuilder(self, ())
+
+    def __repr__(self):
+        return f"<{type(self).__name__}>"
+
+
+@Pytree.dataclass
+class ChoiceMapBuilder(Pytree):
+    """``chm.at["x", "y"].set(v)``: fluent construction / update."""
+
+    base: ChoiceMap | None
+    path: tuple
+
+    def __getitem__(self, addr) -> "ChoiceMapBuilder":
+        return ChoiceMapBuilder(self.base, self.path + addr_tuple(addr))
+
+    def set(self, v) -> ChoiceMap:
+        entry = ChoiceMap.entry(v, *self.path)
+        if self.base is None or self.base.static_is_empty():
+            return entry
+        return entry | self.base
+
+
+#: Module-level builder: ``C["x"].set(1.0)``.
+C = ChoiceMapBuilder(None, ())
+
+
+@Pytree.dataclass
+class Empty(ChoiceMap):
+    def get_value(self):
+        return None
+
+    def get_inner_map(self, comp) -> ChoiceMap:
+        return self
+
+    def filter(self, selection) -> ChoiceMap:
+        return self
+
+    def static_is_empty(self) -> bool:
+        return True
+
+
+@Pytree.dataclass
+class Choice(ChoiceMap):
+    """A single value at this node (possibly Mask-wrapped)."""
+
+    v: Any
+
+    def get_value(self):
+        return self.v
+
+    def get_inner_map(self, comp) -> ChoiceMap:
+        if isinstance(comp, str):
+            return Empty()
+        if isinstance(comp, slice):
+            if comp == slice(None):
+                return self
+            raise ValueError(
+                "only the full slice ':' is a valid address component"
+            )
+
+        def ix(leaf):
+            return leaf[comp]
+
+        if isinstance(self.v, Mask):
+            flag = self.v.flag
+            if not isinstance(flag, bool) and _t(flag).ndim:
+                flag = _t(flag)[comp]
+            return Choice(Mask(tree_map(ix, self.v.value), flag))
+        return Choice(tree_map(ix, self.v))
+
+    def filter(self, selection) -> ChoiceMap:
+        if not isinstance(selection, Selection):
+            selection = AllSel().mask(_check_flag(selection, "filter"))
+        out = Mask.maybe_mask(self.v, selection.check())
+        if out is None:
+            return Empty()
+        return Choice(out)
+
+
+@Pytree.dataclass
+class Static(ChoiceMap):
+    """Trie node with static (str/int) keys."""
+
+    submaps: tuple
+    keys: tuple = Pytree.static()
+
+    @staticmethod
+    def build(mapping: Mapping) -> "Static":
+        keys = tuple(mapping.keys())
+        return Static(tuple(mapping[k] for k in keys), keys)
+
+    def get_value(self):
+        return None
+
+    def get_inner_map(self, comp) -> ChoiceMap:
+        if _is_static_comp(comp):
+            for k, sub in zip(self.keys, self.submaps):
+                if k == comp:
+                    return sub
+            return Empty()
+        out: ChoiceMap = Empty()
+        for k, sub in zip(self.keys, self.submaps):
+            if isinstance(k, int):
+                out = out | sub.mask(_t(comp) == k)
+        return out
+
+    def filter(self, selection) -> ChoiceMap:
+        """Eager filtering: statically excluded subtrees are pruned."""
+        if not isinstance(selection, Selection):
+            selection = AllSel().mask(_check_flag(selection, "filter"))
+        kept = {}
+        for k, sub in zip(self.keys, self.submaps):
+            f = sub.filter(selection.get_subselection(k))
+            if not f.static_is_empty():
+                kept[k] = f
+        if not kept:
+            return Empty()
+        return Static.build(kept)
+
+    def mapping(self) -> dict:
+        return dict(zip(self.keys, self.submaps))
+
+
+def _lane_slice(tree, pos, n: int):
+    """Index the lane axis of every leaf that has it (leading length
+    ``n``); other leaves pass through."""
+
+    def pick(v):
+        if isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[0] == n:
+            return v[pos]
+        return v
+
+    return tree_map(pick, tree)
+
+
+@Pytree.dataclass
+class Indexed(ChoiceMap):
+    """Dynamic-index node: ``inner`` has a leading lane axis and ``idx``
+    holds each lane's address; ``idx=None`` means lane ``i`` is addressed
+    by ``i``."""
+
+    inner: ChoiceMap
+    idx: Any = None
+    n: Any = Pytree.static(default=None)
+
+    def _n(self) -> int:
+        if self.n is not None:
+            return self.n
+        for leaf in tree_leaves(self.inner):
+            if isinstance(leaf, torch.Tensor) and leaf.ndim >= 1:
+                return leaf.shape[0]
+        return 0
+
+    def _get_idx(self) -> torch.Tensor:
+        if self.idx is None:
+            return torch.arange(self._n())
+        return _t(self.idx)
+
+    def get_value(self):
+        return None
+
+    def static_is_empty(self) -> bool:
+        if self.n == 0:
+            return True
+        if self.n is None and self.idx is None:
+            for leaf in tree_leaves(self.inner):
+                if isinstance(leaf, torch.Tensor) and leaf.ndim >= 1:
+                    return leaf.shape[0] == 0
+        elif self.idx is not None and _t(self.idx).ndim >= 1:
+            return _t(self.idx).shape[0] == 0
+        return False
+
+    def get_inner_map(self, comp) -> ChoiceMap:
+        if isinstance(comp, str):
+            return Empty()
+        if self.static_is_empty():
+            return Empty()
+        idx = self._get_idx()
+        n = idx.shape[0] if idx.ndim else 0
+        if isinstance(comp, int) and idx.ndim == 1:
+            hits = torch.nonzero(idx.cpu() == comp).flatten()
+            if len(hits) == 0:
+                return Empty()
+            return _lane_slice(self.inner, int(hits[0]), n)
+        if isinstance(comp, slice):
+            if idx.ndim == 0:
+                return self
+            if comp == slice(None) and self.idx is None:
+                return self.inner
+            return Indexed(_lane_slice(self.inner, comp, n), idx[comp])
+        comp = _t(comp)
+        idx = idx.to(comp.device)
+        if idx.ndim == 0:
+            return self.inner.mask(comp == idx)
+        if comp.ndim > 0:
+            eq = idx[None, :] == comp[:, None]
+            pos = torch.argmax(eq.to(torch.int32), dim=1)
+            found = eq.any(dim=1)
+            return _lane_slice(self.inner, pos, n).mask(found)
+        eq = idx == comp
+        pos = torch.argmax(eq.to(torch.int32))
+        found = eq.any()
+        return _lane_slice(self.inner, pos, n).mask(found)
+
+    def filter(self, selection) -> ChoiceMap:
+        if not isinstance(selection, Selection):
+            selection = AllSel().mask(_check_flag(selection, "filter"))
+        sub = selection.get_subselection(self._get_idx())
+        filtered = self.inner.filter(sub)
+        if filtered.static_is_empty():
+            return Empty()
+        return Indexed(filtered, self.idx, self.n)
+
+
+@Pytree.dataclass
+class Switch(ChoiceMap):
+    """Masked branches selected by a tensor index."""
+
+    idx: Any
+    branches: tuple
+
+    def get_value(self):
+        vals = [
+            Mask.maybe_mask(b.get_value(), _t(self.idx) == k)
+            for k, b in enumerate(self.branches)
+        ]
+        present = [v for v in vals if v is not None]
+        if not present:
+            return None
+        out = Mask.or_n(*[Mask.build(v) for v in present])
+        return Mask.maybe_mask(out.value, out.flag)
+
+    def get_inner_map(self, comp) -> ChoiceMap:
+        return Switch(
+            self.idx, tuple(b.get_inner_map(comp) for b in self.branches)
+        )
+
+
+@Pytree.dataclass
+class Or(ChoiceMap):
+    """Priority union: values in ``left`` win at overlapping addresses."""
+
+    left: ChoiceMap
+    right: ChoiceMap
+
+    def get_value(self):
+        a = self.left.get_value()
+        b = self.right.get_value()
+        if a is None and b is None:
+            return None
+        if a is None:
+            return b
+        if b is None:
+            return a
+        out = Mask.build(a) | Mask.build(b)
+        return Mask.maybe_mask(out.value, out.flag)
+
+    def get_inner_map(self, comp) -> ChoiceMap:
+        return self.left.get_inner_map(comp) | self.right.get_inner_map(comp)
+
+    def filter(self, selection) -> ChoiceMap:
+        return self.left.filter(selection) | self.right.filter(selection)
+
+
+@Pytree.dataclass
+class Filtered(ChoiceMap):
+    """Lazy filter of ``inner`` by a selection."""
+
+    inner: ChoiceMap
+    selection: Selection
+
+    def get_value(self):
+        v = self.inner.get_value()
+        if v is None:
+            return None
+        return Mask.maybe_mask(v, self.selection.check())
+
+    def get_inner_map(self, comp) -> ChoiceMap:
+        sub = self.inner.get_inner_map(comp)
+        return sub.filter(self.selection.get_subselection(comp))
+
+
+@Pytree.dataclass
+class ChmSel(Selection):
+    """The selection of all addresses present in a choice map."""
+
+    chm: ChoiceMap
+
+    def check(self) -> Flag:
+        v = self.chm.get_value()
+        if v is None:
+            return False
+        if isinstance(v, Mask):
+            return v.primal_flag()
+        return True
+
+    def get_subselection(self, comp) -> Selection:
+        sub = self.chm.get_inner_map(comp)
+        if sub.static_is_empty():
+            return NoneSel()
+        return ChmSel(sub)

@@ -1,0 +1,192 @@
+"""Particle filtering: initialize an ensemble, then alternate adaptive
+resampling, propagation and reweighting (counterpart of
+``genjax_tpu/inference/pf.py``).
+
+JAX runs the steps in one ``lax.scan`` behind a ``lax.cond`` on the ESS.
+Here the steps are a Python loop and the ESS test is a Python ``if``:
+one host sync per step, the known idle source of this slice. The step
+keys are derived for all steps at once before the loop (the same key
+data as JAX's per-step ``fold_in`` + ``split``), so the loop issues no
+key arithmetic of its own. The sharding hooks of the JAX driver
+(``shard_constraint``, ``stats_fn``, ``resample_fn``) are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from genjax_torch.core import random
+from genjax_torch.core.pytree import tree_leaves, tree_map
+from genjax_torch.gfi.gfn import GenerativeFunction
+from genjax_torch.inference.smc import resample_tree
+from genjax_torch.ops.fused_step import fused_step
+
+__all__ = [
+    "FilterState",
+    "particle_filter",
+    "bootstrap_filter",
+    "fused_particle_filter",
+]
+
+
+class FilterState(NamedTuple):
+    particles: Any  # per-particle latent state pytree (leading axis = K)
+    log_weights: torch.Tensor
+    log_z: torch.Tensor
+
+
+def _step_keys(key, n_steps: int):
+    """``(k_init, k_res[t], k_prop[t])`` for ``t < n_steps``: JAX's
+    ``split(key)`` then ``split(fold_in(k_scan, t))`` per step."""
+    k_init, k_scan = random.split(key).unbind(-2)
+    steps = torch.arange(n_steps, dtype=torch.int64, device=key.device)
+    k_res, k_prop = random.split(random.fold_in(k_scan, steps)).unbind(-2)
+    return k_init, k_res, k_prop
+
+
+def _lse_ess(lw: torch.Tensor):
+    lse = torch.logsumexp(lw, dim=0)
+    return lse, torch.exp(2.0 * lse - torch.logsumexp(2.0 * lw, dim=0))
+
+
+def particle_filter(
+    init: Callable,
+    step: Callable,
+    n_particles: int,
+    ess_threshold: float = 0.5,
+    resampling: str = "systematic",
+    batched: bool = False,
+):
+    """Generic particle filter.
+
+    - ``init(key) -> (state, log_w)``: the initial ensemble and weights;
+    - ``step(key, state, obs_t) -> (state, log_incr_w)``: propagate and
+      weight against ``obs_t``.
+
+    With ``batched=True`` each call gets ONE key and works on the whole
+    ``(n_particles, ...)`` ensemble. Otherwise each call gets the batch of
+    per-particle keys ``fold_in(k, i)``, ``i < n_particles`` (the particle
+    axis written out where JAX vmaps), and works on the same ensemble.
+
+    Returns ``run(key, observations) -> (FilterState, log_z_per_step)``.
+    """
+    log_n = math.log(n_particles)
+
+    def per_particle(k):
+        return random.fold_in(k, torch.arange(n_particles, device=k.device))
+
+    def run(key, observations):
+        n_steps = tree_leaves(observations)[0].shape[0]
+        k_init, k_res, k_prop = _step_keys(key, n_steps)
+        states, log_ws = init(k_init if batched else per_particle(k_init))
+        log_ws = torch.as_tensor(log_ws, device=key.device).to(
+            torch.float32).expand(n_particles).clone()
+        log_z = torch.zeros((), device=key.device)
+        log_zs = []
+        for t in range(n_steps):
+            obs_t = tree_map(lambda o: o[t], observations)
+            lse, ess = _lse_ess(log_ws)
+            if bool(ess < ess_threshold * n_particles):
+                states = resample_tree(k_res[t], log_ws, states, n_particles,
+                                       resampling)
+                log_z = log_z + lse - log_n
+                log_ws = torch.zeros_like(log_ws)
+            kp = k_prop[t] if batched else per_particle(k_prop[t])
+            states, incr = step(kp, states, obs_t)
+            log_ws = log_ws + incr
+            log_zs.append(log_z + torch.logsumexp(log_ws, dim=0) - log_n)
+        final = FilterState(
+            states, log_ws, log_z + torch.logsumexp(log_ws, dim=0) - log_n
+        )
+        return final, torch.stack(log_zs)
+
+    return run
+
+
+def fused_particle_filter(
+    init: Callable,
+    propagate: Callable,
+    loglik: Callable,
+    n_particles: int,
+    ess_threshold: float = 0.5,
+    resampling: str = "systematic",
+    state_dtype=torch.float32,
+    propagate_triton=None,
+    loglik_triton=None,
+):
+    """Particle filter whose per-step hot path (RNG + propagate + loglik +
+    weight accumulate + logsumexp/ESS) is one fused kernel
+    (``ops/fused_step.py``). Scalar-state models with one N(0, 1) draw
+    per particle per step and scalar observations.
+
+    - ``init(key) -> xs``: the initial ``(n_particles,)`` ensemble;
+    - ``propagate(x, eps)`` / ``loglik(x_new, obs_t)``: the model's torch
+      form, elementwise;
+    - ``propagate_triton`` / ``loglik_triton``: the same model as
+      ``@triton.jit`` functions, required when the ensemble lies on a
+      CUDA device.
+
+    Semantics match :func:`particle_filter`; the normal stream is the
+    kernel's threefry-on-counter + Box–Muller, so the two agree
+    statistically, not bitwise.
+    """
+    log_n = math.log(n_particles)
+
+    def run(key, observations):
+        n_steps = observations.shape[0]
+        k_init, k_res, k_prop = _step_keys(key, n_steps)
+        xs = init(k_init).to(state_dtype)
+        dev = xs.device
+        obs = torch.as_tensor(observations, dtype=torch.float32, device=dev)
+        k_res, k_prop = k_res.to(dev), k_prop.to(dev)
+        lw = torch.zeros(n_particles, device=dev)
+        # (log_z, lse(lw), ess(lw)) ride along: the fused step emits the
+        # next step's lse/ess. lse starts at logsumexp(zeros(K)) = log K.
+        log_z = torch.zeros((), device=dev)
+        lse = torch.full((), log_n, device=dev)
+        ess = torch.full((), float(n_particles), device=dev)
+        log_zs = []
+        for t in range(n_steps):
+            if bool(ess < ess_threshold * n_particles):
+                xs = resample_tree(k_res[t], lw, xs, n_particles, resampling)
+                log_z = log_z + lse - log_n
+                lw = torch.zeros_like(lw)
+            xs, lw, lse, ess = fused_step(
+                k_prop[t], xs, lw, obs[t], propagate, loglik,
+                propagate_triton=propagate_triton,
+                loglik_triton=loglik_triton, state_dtype=state_dtype,
+            )
+            log_zs.append(log_z + lse - log_n)
+        return FilterState(xs, lw, log_z + lse - log_n), torch.stack(log_zs)
+
+    return run
+
+
+def bootstrap_filter(
+    transition: GenerativeFunction,
+    observation_logpdf: Callable,
+    n_particles: int,
+    init_prior: GenerativeFunction | None = None,
+    init_args: tuple = (),
+    ess_threshold: float = 0.5,
+    resampling: str = "systematic",
+):
+    """Bootstrap particle filter from generative functions: ``init_prior``
+    samples the initial latent, ``transition`` (args ``(state,)``) the
+    next, and ``observation_logpdf(state, obs_t)`` scores an observation.
+    Each runs once per step on the batch of per-particle keys."""
+    if init_prior is None:
+        raise ValueError("bootstrap_filter requires init_prior")
+
+    def init(keys):
+        tr = init_prior.simulate(keys, init_args)
+        return tr.get_retval(), torch.zeros(())
+
+    def step(keys, state, obs_t):
+        new_state = transition.simulate(keys, (state,)).get_retval()
+        return new_state, observation_logpdf(new_state, obs_t)
+
+    return particle_filter(init, step, n_particles, ess_threshold, resampling)

@@ -1,0 +1,44 @@
+"""Carrying state from the JAX package into the port through numpy, so
+that both packages compute on identical inputs without this package
+importing JAX:
+
+    key = key_from_numpy(np.asarray(jax.random.key_data(k)))
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from genjax_torch.gfi.choice_map import ChoiceMap
+
+__all__ = ["key_from_numpy", "choice_map_from_numpy", "ensemble_from_numpy"]
+
+
+def key_from_numpy(data, device=None) -> torch.Tensor:
+    """A port key from ``uint32[..., 2]`` key data, as
+    ``np.asarray(jax.random.key_data(k))`` gives it."""
+    a = np.asarray(data)
+    if a.shape[-1:] != (2,):
+        raise ValueError(f"key data has shape {a.shape}, want (..., 2)")
+    return torch.as_tensor(a.astype(np.int64) & 0xFFFFFFFF, device=device)
+
+
+def choice_map_from_numpy(mapping: Mapping, device=None) -> ChoiceMap:
+    """``{address: value}`` (addresses as in ``ChoiceMap.d``) to a port
+    choice map; numpy arrays become tensors, Python scalars stay as
+    they are."""
+    return ChoiceMap.d({
+        addr: torch.tensor(v, device=device)
+        if isinstance(v, (np.ndarray, np.generic)) else v
+        for addr, v in mapping.items()
+    })
+
+
+def ensemble_from_numpy(xs, lw, device=None):
+    """A particle ensemble ``(xs, log_weights)`` as tensors on
+    ``device``; log-weights are f32."""
+    return (torch.tensor(np.asarray(xs), device=device),
+            torch.tensor(np.asarray(lw, np.float32), device=device))

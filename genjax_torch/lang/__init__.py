@@ -1,0 +1,11 @@
+"""The modeling language layer: the ``@gen`` DSL and distributions."""
+
+from genjax_torch.lang.static import (
+    AddressReuse,
+    Fn,
+    MissingAddress,
+    StaticTrace,
+    gen,
+)
+
+__all__ = ["AddressReuse", "Fn", "MissingAddress", "StaticTrace", "gen"]

@@ -1,0 +1,155 @@
+"""The distributions of the main path: normal, beta, flip / bernoulli,
+uniform and categorical (counterpart of
+``genjax_tpu/lang/distributions/stdlib.py``; the rest of its ~45
+distributions are not ported yet). Parameterizations follow the JAX
+package: ``flip`` takes probs, ``bernoulli`` and ``categorical`` logits.
+
+Every sampler takes a key batch ``B + (2,)`` and draws one value per key
+(``core/random.py``); every log-density is elementwise and broadcasts.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from genjax_torch.core import random
+from genjax_torch.lang.distributions.distribution import exact_density
+
+__all__ = ["bernoulli", "beta", "categorical", "flip", "normal", "uniform"]
+
+
+def _device(*xs):
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    return None
+
+
+def _f(x, device=None) -> torch.Tensor:
+    """f32, as JAX's x64-off default."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=torch.float32, device=device or x.device)
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _xlogy(x, y):
+    return torch.where(x == 0, torch.zeros_like(x * y), x * torch.log(y))
+
+
+def _xlog1py(x, y):
+    return torch.where(x == 0, torch.zeros_like(x * y), x * torch.log1p(y))
+
+
+def _normal_sample(key, loc, scale):
+    loc, scale = _f(loc, key.device), _f(scale, key.device)
+    return loc + scale * random.normal(key, random.event_shape(key, loc, scale))
+
+
+def _normal_logpdf(v, loc, scale):
+    dev = _device(v, loc, scale)
+    v, loc, scale = _f(v, dev), _f(loc, dev), _f(scale, dev)
+    log_normalizer = torch.log(2 * math.pi * (scale * scale))
+    quadratic = (v - loc) ** 2 / (scale * scale)
+    return (log_normalizer + quadratic) / -2.0
+
+
+#: Normal(loc, scale).
+normal = exact_density(_normal_sample, _normal_logpdf, "normal")
+
+
+def _uniform_sample(key, low=0.0, high=1.0):
+    low, high = _f(low, key.device), _f(high, key.device)
+    return random.uniform(key, random.event_shape(key, low, high),
+                          minval=low, maxval=high)
+
+
+def _uniform_logpdf(v, low=0.0, high=1.0):
+    dev = _device(v, low, high)
+    v, low, high = _f(v, dev), _f(low, dev), _f(high, dev)
+    scale = high - low
+    lp = -torch.log(scale) + torch.zeros_like(v)
+    return torch.where((v > low + scale) | (v < low),
+                       torch.full_like(lp, -math.inf), lp)
+
+
+#: Uniform(low, high).
+uniform = exact_density(
+    _uniform_sample, _uniform_logpdf, "uniform",
+    support=lambda low=0.0, high=1.0: (low, high),
+)
+
+
+def _beta_sample(key, c1, c0):
+    c1, c0 = _f(c1, key.device), _f(c0, key.device)
+    return random.beta(key, c1, c0, random.event_shape(key, c1, c0))
+
+
+def _betaln(a, b):
+    return torch.lgamma(a) + torch.lgamma(b) - torch.lgamma(a + b)
+
+
+def _beta_logpdf(v, c1, c0):
+    dev = _device(v, c1, c0)
+    v, a, b = _f(v, dev), _f(c1, dev), _f(c0, dev)
+    lp = -_betaln(a, b) + _xlogy(a - 1.0, v) + _xlog1py(b - 1.0, -v)
+    return torch.where((v > 1.0) | (v < 0.0), torch.full_like(lp, -math.inf),
+                       lp)
+
+
+#: Beta(concentration1, concentration0).
+beta = exact_density(_beta_sample, _beta_logpdf, "beta",
+                     support="unit_interval")
+
+
+def _bernoulli_logits_logpmf(v, logits):
+    dev = _device(v, logits)
+    v, logits = _f(v, dev), _f(logits, dev)
+    return v * logits - torch.logaddexp(torch.zeros_like(logits), logits)
+
+
+def _bernoulli_sample(key, logits):
+    logits = _f(logits, key.device)
+    return random.bernoulli(key, torch.sigmoid(logits),
+                            random.event_shape(key, logits))
+
+
+#: Bernoulli(logits).
+bernoulli = exact_density(_bernoulli_sample, _bernoulli_logits_logpmf,
+                          "bernoulli")
+
+
+def _flip_sample(key, p):
+    p = _f(p, key.device)
+    return random.bernoulli(key, p, random.event_shape(key, p))
+
+
+def _flip_logpmf(v, p):
+    dev = _device(v, p)
+    v, p = _f(v, dev), _f(p, dev)
+    return _xlogy(v, p) + _xlog1py(1.0 - v, -p)
+
+
+#: Flip(prob): probability-parameterized Bernoulli.
+flip = exact_density(_flip_sample, _flip_logpmf, "flip")
+
+
+def _categorical_sample(key, logits):
+    return random.categorical(key, logits)
+
+
+def _categorical_logpmf(v, logits):
+    dev = _device(v, logits)
+    logits = _f(logits, dev)
+    logz = torch.logsumexp(logits, dim=-1)
+    idx = torch.as_tensor(v, device=logits.device).to(torch.int64)
+    shape = torch.broadcast_shapes(idx.shape, logits.shape[:-1])
+    full = logits.expand(shape + logits.shape[-1:])
+    picked = torch.gather(full, -1, idx.expand(shape)[..., None])[..., 0]
+    return picked - logz
+
+
+#: Categorical(logits).
+categorical = exact_density(_categorical_sample, _categorical_logpmf,
+                            "categorical")

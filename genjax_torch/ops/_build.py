@@ -1,0 +1,71 @@
+"""Building the port's kernels at first use, from the sources in the
+package, into ``genjax_torch/_build/`` (listed in ``.gitignore``).
+
+CUDA C++ sources are compiled by ``nvcc`` into a shared library with a
+plain C interface and loaded with ``ctypes``: a build takes seconds
+because no PyTorch header is included. Triton kernels compile through
+Triton's own cache, pointed at ``_build/triton`` unless
+``TRITON_CACHE_DIR`` is already set.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+
+__all__ = ["BUILD_DIR", "CSRC_DIR", "load_cuda_library", "triton_cache_dir"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUILD_DIR = os.path.join(_PKG, "_build")
+CSRC_DIR = os.path.join(_PKG, "csrc")
+
+#: Hopper with its architecture-specific features (``sm_90a``).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+        shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"
+    ]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def load_cuda_library(name: str, *sources: str) -> ctypes.CDLL:
+    """Compile ``csrc/<sources>`` into ``_build/lib<name>.so`` (again only
+    when a source is newer than the library) and load it. The caller
+    keeps the handle."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    srcs = [os.path.join(CSRC_DIR, s) for s in sources]
+    lib = os.path.join(BUILD_DIR, f"lib{name}.so")
+    stale = not os.path.exists(lib) or any(
+        os.path.getmtime(s) > os.path.getmtime(lib) for s in srcs
+    )
+    if stale:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed building {name}:\n{' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, lib)
+    return ctypes.CDLL(lib)
+
+
+def triton_cache_dir() -> str:
+    """Point Triton's cache at ``_build/triton`` unless already set."""
+    path = os.environ.setdefault(
+        "TRITON_CACHE_DIR", os.path.join(BUILD_DIR, "triton")
+    )
+    os.makedirs(path, exist_ok=True)
+    return path

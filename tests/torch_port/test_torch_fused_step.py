@@ -1,0 +1,117 @@
+"""The fused filter-step module of the port (genjax_torch/ops/fused_step.py):
+its plain version against the JAX package's ``fused_step_reference`` and
+its Pallas kernel ``make_fused_step`` in interpret mode, on the same state,
+weights (numpy, from a seed) and key data. The Triton kernel runs only on
+the card and is checked by chip_smoke.py.
+
+The threefry words and the uniforms built from them are equal bit for
+bit. ``xs``/``lw`` go through log1p, sqrt and cos, whose CPU
+implementations differ between XLA and torch by an ulp here and there;
+the tracking model then amplifies an ulp of ``x`` (``x^2/20``, squared),
+so they are held to 1e-5 relative + 1e-5 absolute. ``lse``/``ess`` to
+1e-4, the JAX package's own bound between its two versions
+(tests/ops/test_fused_step.py:74-75)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from genjax_tpu.ops.fused_step import (
+    fused_step_reference,
+    make_fused_step,
+    normal_from_counter as jax_normal_from_counter,
+    threefry2x32 as jax_threefry2x32,
+)
+from genjax_torch.core import random as R
+from genjax_torch.entry import tracking_loglik, tracking_propagate
+from genjax_torch.interop import ensemble_from_numpy, key_from_numpy
+from genjax_torch.ops import fused_step as fs
+
+N = 4096
+KEY = jax.random.key(314159)
+
+
+def _jax_tracking(x, e):
+    return 0.5 * x + 25.0 * x / (1.0 + x * x) + jnp.sqrt(10.0) * e
+
+
+def _jax_tracking_ll(x, y):
+    return -0.5 * (y - x * x / 20.0) ** 2 - 0.5 * jnp.log(2 * jnp.pi)
+
+
+def _inputs():
+    rng = np.random.default_rng(1)
+    xs = rng.normal(size=N).astype(np.float32)
+    lw = (0.3 * rng.normal(size=N)).astype(np.float32)
+    return xs, lw
+
+
+def test_threefry_words_and_uniforms_bitwise():
+    seeds = np.asarray(jax.random.key_data(KEY))
+    ctr = np.arange(N, dtype=np.uint32)
+    j0, j1 = jax_threefry2x32(jnp.uint32(seeds[0]), jnp.uint32(seeds[1]),
+                              jnp.asarray(ctr), jnp.zeros(N, jnp.uint32))
+    st = key_from_numpy(seeds)
+    t0, t1 = R.threefry2x32(st[0], st[1], torch.arange(N),
+                            torch.zeros(N, dtype=torch.int64))
+    np.testing.assert_array_equal(t0.numpy().astype(np.uint32), np.asarray(j0))
+    np.testing.assert_array_equal(t1.numpy().astype(np.uint32), np.asarray(j1))
+    u = fs._u24_to_unit(t0).numpy()
+    uj = ((np.asarray(j0) >> 8).astype(np.float32) * np.float32(2.0**-24))
+    np.testing.assert_array_equal(u, uj)
+    z = fs.normal_from_counter(st[0], st[1], torch.arange(N)).numpy()
+    zj = np.asarray(jax_normal_from_counter(
+        jnp.uint32(seeds[0]), jnp.uint32(seeds[1]), jnp.asarray(ctr)))
+    np.testing.assert_allclose(z, zj, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_plain_vs_jax_reference_and_pallas(state_dtype):
+    xs, lw = _inputs()
+    jdt = jnp.dtype(state_dtype)
+    tdt = getattr(torch, state_dtype)
+    seeds = jax.random.key_data(KEY).astype(jnp.uint32)
+    jxs = jnp.asarray(xs).astype(jdt)
+    ref = fused_step_reference(_jax_tracking, _jax_tracking_ll, N,
+                               state_dtype=jdt)
+    kern = make_fused_step(_jax_tracking, _jax_tracking_ll, N, chunk_rows=8,
+                           state_dtype=jdt, interpret=True)
+    outs_j = [jax.jit(f)(seeds, jxs, jnp.asarray(lw), 2.5) for f in (ref, kern)]
+    txs, tlw = ensemble_from_numpy(np.asarray(jxs.astype(jnp.float32)), lw)
+    got = fs.fused_step_plain(key_from_numpy(np.asarray(seeds)), txs.to(tdt),
+                              tlw, 2.5, tracking_propagate, tracking_loglik,
+                              state_dtype=tdt)
+    assert got[0].dtype == tdt and got[1].dtype == torch.float32
+    for xj, lwj, lsej, essj in outs_j:
+        x_t = got[0].float().numpy()
+        x_j = np.asarray(xj.astype(jnp.float32))
+        if state_dtype == "float32":
+            np.testing.assert_allclose(x_t, x_j, rtol=1e-5, atol=1e-5)
+        else:
+            # one bf16 rounding of an f32 value that moved by an ulp
+            np.testing.assert_allclose(x_t, x_j, rtol=2**-7, atol=1e-5)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(lwj),
+                                   rtol=1e-5, atol=1e-4)
+        assert abs(float(got[2]) - float(lsej)) < 1e-4
+        assert abs(float(got[3]) - float(essj)) / float(essj) < 1e-4
+
+
+def test_wrapper_takes_plain_on_cpu_and_counts_nothing():
+    xs, lw = ensemble_from_numpy(*_inputs())
+    seeds = R.key(3)
+    before = fs.fused_step.launches
+    a = fs.fused_step(seeds, xs, lw, 1.0, tracking_propagate, tracking_loglik)
+    b = fs.fused_step_plain(seeds, xs, lw, 1.0, tracking_propagate,
+                            tracking_loglik)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert fs.fused_step.launches == before
+
+
+def test_wrapper_rejects_devices_without_a_kernel():
+    xs = torch.zeros(8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fs.fused_step(R.key(0), xs, xs, 0.0, tracking_propagate,
+                      tracking_loglik)
