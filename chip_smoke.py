@@ -9,8 +9,9 @@ Phases (each prints one line; any failure exits non-zero):
      expand_adaptive; one nvcc each, all started together) and the
      fused-step kernel (Triton), from the sources in the checkout, into
      genjax_torch/_build/;
-  3. the CDF->counts kernel against its plain version at 2^20 and at a
-     ragged size, in five weight regimes;
+  3. the CDF->counts kernel against its plain version in five weight
+     regimes at n = 1, 4097, 2^19, 2^20, a ragged size and 2^24 (more
+     tiles than the card holds at once), and its device ops per call;
   4. the fused-step kernel against its plain version at 2^20, f32 and
      bf16 state;
   5. SIR through entry() at K = 64 and K = 2^16;
@@ -21,8 +22,11 @@ Phases (each prints one line; any failure exits non-zero):
      particle-steps/s of both config-4 drivers, with a profiled run's
      device-busy time, device ops and host time in kernel launches;
   8. the log-matmul kernel against its plain version: B = 8 at S = 128,
-     512, 1024; ragged S = 100, 200; unbatched; strided operands; an
-     empty batch (no launch); the -1e30 input and an all -inf row;
+     512, 1024; ragged S = 100, 200; K = 101 (unaligned rows); scale-30
+     normals; B = 70000 (past the grid's z extent); unbatched; strided
+     operands; the parallel filter's own first-level operands (511,
+     1024, 1024); an empty batch (no launch); the -1e30 input and an all
+     -inf row;
   9. the expand_adaptive kernel bit for bit against its plain version
      and repeat_interleave at 2^20, in the JAX test file's regimes;
  10. the discrete-HMM parallel path at full width (circulant(1024, 1024),
@@ -33,9 +37,11 @@ Phases (each prints one line; any failure exits non-zero):
      build_hmm_smc, against the exact log marginal;
  12. expand_adaptive through its own entry point at 2^20;
  13. timings of the slice: each new kernel beside its plain version, its
-     bound and its library call at the main path's shapes, the
-     full-width parallel filter's wall time, and config 3's
-     particle-steps/s with a profiled run's device-busy time.
+     bounds and its library call at the main path's shapes, the CDF
+     kernel at 2^19 and 2^20, the full-width parallel filter's wall time
+     and how it splits between the log-matmul prologue and product, the
+     scan's copies and the rest, and config 3's particle-steps/s with a
+     profiled run's device-busy time.
 Each path's kernel launches are counted from 0 just before it runs. The
 last two lines are the card's line and the kernels' JSON record, then
 the result line.
@@ -150,9 +156,12 @@ def threefry_bits(seeds, n: int, block: int = 1024):
 
 #: The card's peaks that bound a kernel (NVIDIA H100 SXM data sheet, at
 #: its 700 W limit): HBM3 bytes/s, and f32 operations/s outside the
-#: tensor cores, against which every operation is counted.
+#: tensor cores, against which every operation is counted; TF32
+#: operations/s on the tensor cores (dense), the rate of log_matmul's
+#: split-TF32 route.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -191,7 +200,7 @@ def lw_regime(regime: str, n: int, dev):
     if regime == "skewed":
         return 4.0 * random.normal(k, (n,))
     if regime == "one_hot":
-        return torch.where(idx == 12345, 0.0, -1e9)
+        return torch.where(idx == min(12345, n // 3), 0.0, -1e9)
     return torch.where(idx < 9, 8.0, -2.0)          # head_tail
 
 
@@ -210,7 +219,7 @@ def main() -> int:
     from genjax_torch import entry as E
     from genjax_torch import triton_models as TM
     from genjax_torch.core import random
-    from genjax_torch.core.scan import count_combines
+    from genjax_torch.core.scan import associative_scan, count_combines
     from genjax_torch.inference import ImportanceK, Target
     from genjax_torch.lang.distributions.discrete_hmm import (
         DiscreteHMM, forward_filter, forward_filter_parallel)
@@ -241,8 +250,23 @@ def main() -> int:
           f"launched in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 3. cdf kernel vs plain --------------------------------------------
-    cdf_err = 0
-    for n in (1 << 20, 1_000_003):
+    def exact_counts(key, lw, n):
+        """The counts from a float64 prefix sum, unrounded to f32."""
+        cum = torch.cumsum(torch.exp(lw.double() - lw.double().max()), 0)
+        u0 = random.uniform(key, ()).double()
+        out = torch.clamp(torch.ceil(cum * (n / cum[-1]) - u0), 0, n).long()
+        out[-1] = n
+        return out
+
+    # The plain version's f32 cumsum drifts by ulps of a total that grows
+    # with n: at 2^24 it lands about a dozen destinations from the exact
+    # counts, while the kernel sums in double across tiles. There the
+    # kernel is held to the float64 counts instead, within the same 4.
+    cdf_err, big_n = 0, 1 << 24
+    big_err = {"kernel - float64": 0, "plain - float64": 0,
+               "kernel - plain": 0}
+    cdf_sizes = (1, 4097, 1 << 19, 1 << 20, 1_000_003, big_n)
+    for n in cdf_sizes:
         for regime in ("uniform", "mild", "skewed", "one_hot", "head_tail"):
             lw = lw_regime(regime, n, dev)
             key = random.key(5, device=dev)
@@ -255,6 +279,17 @@ def main() -> int:
             check(bool((counts >= 0).all()), f"cdf {regime} n={n}: decreasing")
             check(int(counts.sum()) == n, f"cdf {regime} n={n}: sum != n")
             err = int((cc - ref).abs().max())
+            if n == big_n:
+                ex = exact_counts(key, lw, n)
+                for name, diff in (("kernel - float64", cc - ex),
+                                   ("plain - float64", ref - ex),
+                                   ("kernel - plain", cc - ref)):
+                    big_err[name] = max(big_err[name],
+                                        int(diff.abs().max()))
+                check(big_err["kernel - float64"] <= 4,
+                      f"cdf {regime} n={n}: {big_err['kernel - float64']} "
+                      f"dests from the float64 counts")
+                continue
             check(err <= 4, f"cdf {regime} n={n}: {err} dests from plain")
             cdf_err = max(cdf_err, err)
     # u0 is drawn inside the kernel: with 2^20 equal weights and one
@@ -267,9 +302,22 @@ def main() -> int:
         cc = cdf_counts.systematic_cumulative(key, flat, 1)
         ref = cdf_counts.systematic_cumulative_plain(key, flat, 1)
         check(bool(torch.equal(cc, ref)), f"cdf u0 differs (seed {seed})")
-    print(f"[3 cdf_counts] invariants exact at n=2^20 and n=1000003 in 5 "
-          f"regimes; max |kernel - plain| = {cdf_err} dests (bound 4); "
-          f"in-kernel u0 equals the plain draw", flush=True)
+    # The design's device operations per call: the two launches, and no
+    # torch reduction before them.
+    cdf_ops = {}
+    for n in (1 << 19, 1 << 20):
+        lw = random.normal(random.key(7, device=dev), (n,))
+        key = random.key(8, device=dev)
+        _, _, _, cdf_ops[n], _ = profiled(
+            lambda: cdf_counts.systematic_cumulative(key, lw, n), 10)
+        check(cdf_ops[n] == 2,
+              f"cdf n={n}: {cdf_ops[n]} device ops per call, not 2")
+    sizes = ", ".join(map(str, cdf_sizes))
+    print(f"[3 cdf_counts] invariants exact at n = {sizes} in 5 regimes;"
+          f" max |kernel - plain| = {cdf_err} dests below 2^24 (bound 4); "
+          f"at 2^24, max dests {big_err} (bound 4 on kernel - float64); "
+          f"in-kernel u0 equals the plain draw; device ops per call "
+          f"{cdf_ops} (design: 2)", flush=True)
 
     # -- 4. fused step vs plain --------------------------------------------
     n = 1 << 20
@@ -433,7 +481,8 @@ def main() -> int:
               f"{busy[name] if busy[name] is None else round(busy[name], 5)}"
               f" ms per call; {top(per_kernel)}", flush=True)
     print(f"[7 kernels] {card}: cdf_counts {cdf_ms:.4f} ms (plain "
-          f"{cdf_plain_ms:.4f} ms); fused_step {fused_ms:.4f} ms (plain "
+          f"{cdf_plain_ms:.4f} ms); "
+          f"fused_step {fused_ms:.4f} ms (plain "
           f"{fused_plain_ms:.4f} ms) at 2^20, CUDA events per call", flush=True)
     rates = {}
     for name, run in (("build_pf", run_pf), ("build_pf_fused", run_fused)):
@@ -459,10 +508,10 @@ def main() -> int:
     # Tolerance: 1e-5 relative and absolute, the JAX test's
     # (tests/ops/test_logmatmul.py): the kernel and cuBLAS may sum the f32
     # product in other orders, and exp/log are the card's own in both.
-    def lm_pair(shape, seed, scale=2.0):
+    def lm_pair(shape, seed, scale=2.0, shape_y=None):
         ka, kb = random.split(random.key(seed, device=dev)).unbind(-2)
         return (scale * random.normal(ka, shape),
-                scale * random.normal(kb, shape))
+                scale * random.normal(kb, shape_y or shape))
 
     def lm_check(x, y, label):
         got, want = lm.log_matmul(x, y), lm.log_matmul_plain(x, y)
@@ -480,6 +529,25 @@ def main() -> int:
         lm_err = max(lm_err, lm_check(*lm_pair(shape, 40 + seed), shape))
     ms_, _ = lm_pair((9, 256, 256), 50)
     lm_err = max(lm_err, lm_check(ms_[0:-1:2], ms_[1::2], "strided"))
+    # K = 101: rows of 404 bytes, not 16-byte aligned (the kernel's
+    # planes pad them); scale 30: exponentials down to the subnormals,
+    # which the split's 2^32 operand scale keeps off the tensor cores.
+    lm_err = max(lm_err, lm_check(*lm_pair((8, 64, 101), 48, 2.0,
+                                           (8, 101, 80)), "K=101"))
+    lm_err = max(lm_err, lm_check(*lm_pair((8, 256, 256), 49, 30.0),
+                                  "scale 30"))
+    # More batch entries than a grid's z extent (65535): blocks loop.
+    lm_err = max(lm_err, lm_check(*lm_pair((70000, 8, 8), 47), "B=70000"))
+    # The parallel filter's first scan level at full width (phase 10's
+    # problem): Ms[0:-1:2] x Ms[1::2], read in place.
+    s_hmm, t_hmm = 1024, 1024
+    run_par, problem = E.build_hmm_parallel(s_hmm, t_hmm, device=dev)
+    config, hmm_obs = problem.config, problem.observations
+    obs_ll = config.observation_logits[:, hmm_obs].T.contiguous()
+    ms_full = config.transition_logits[None] + obs_ll[1:, None, :]
+    lm_err = max(lm_err, lm_check(ms_full[0:-1:2], ms_full[1::2],
+                                  "path (511, 1024, 1024)"))
+    del ms_full
     before = lm.log_matmul.launches
     empty = lm.log_matmul(ms_[:0], ms_[:0])
     check(empty.shape == (0, 256, 256) and lm.log_matmul.launches == before,
@@ -496,9 +564,10 @@ def main() -> int:
     check(bool(torch.equal(torch.isnan(got), torch.isnan(want))
                & torch.isnan(got[1]).all()), "log_matmul: an all -inf row")
     print(f"[8 log_matmul] B=8 at S=128/512/1024, ragged S=100/200, "
-          f"unbatched, strided: max |kernel - plain| = {lm_err:.3g} (tol "
-          f"1e-5 + 1e-5 |plain|); empty batch, no launch; -1e30 finite; "
-          f"an all -inf row NaN as in plain", flush=True)
+          f"K=101, scale 30, B=70000, unbatched, strided, the path's (511, "
+          f"1024, 1024): max |kernel - plain| = {lm_err:.3g} (tol 1e-5 + "
+          f"1e-5 |plain|); empty batch, no launch; -1e30 finite; an all "
+          f"-inf row NaN as in plain", flush=True)
 
     # -- 9. expand_adaptive vs plain and repeat_interleave ------------------
     def expand_case(name, n):
@@ -549,9 +618,6 @@ def main() -> int:
     # circulant(1024, 1024), T = 1024: the top of the TPU kernel's range.
     # Ms alone is (T-1) S^2 4 bytes = 4.3 GB; the scan's levels and the
     # parallel backward sampler's (T-1, S, S) tables are of that size too.
-    s_hmm, t_hmm = 1024, 1024
-    run_par, problem = E.build_hmm_parallel(s_hmm, t_hmm, device=dev)
-    config, hmm_obs = problem.config, problem.observations
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -659,18 +725,23 @@ def main() -> int:
         t_bmm = cuda_ms(lambda: torch.bmm(xa, yb), reps)
         _, dev_lm, per_kernel, _, _ = profiled(
             lambda: lm.log_matmul(xa, yb), reps)
-        b_ms, b_by = bound(12.0 * b_dim * s_dim ** 2,
-                           2.0 * b_dim * s_dim ** 3)
+        flop = 2.0 * b_dim * s_dim ** 3
+        b_ms, b_by = bound(12.0 * b_dim * s_dim ** 2, flop)
+        # The split-TF32 route's own bound: three tensor-core products.
+        tc_ms = 3.0 * flop / TF32_OPS_PER_S * 1e3
         lm_rows[s_dim] = {"ms": t_lm, "plain_ms": t_plain, "bmm_ms": t_bmm,
                           "device_ms": dev_lm, "bound_ms": b_ms,
-                          "bound_by": b_by, "batch": b_dim}
+                          "bound_by": b_by, "tc_bound_ms": tc_ms,
+                          "batch": b_dim, "device_by_kernel": per_kernel}
         print(f"[13 log_matmul B={b_dim} S={s_dim}] {card}: kernel "
-              f"{t_lm:.4f} ms (device {dev_lm} ms: {top(per_kernel, 2)}), "
+              f"{t_lm:.4f} ms (device {dev_lm} ms: {top(per_kernel, 3)}), "
               f"plain {t_plain:.4f} ms, torch.bmm (product alone) "
-              f"{t_bmm:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
-              f"{2.0 * b_dim * s_dim ** 3:.4g} flop, "
-              f"{12.0 * b_dim * s_dim ** 2:.4g} B); kernel at "
-              f"{b_ms / t_lm:.3f} of the bound", flush=True)
+              f"{t_bmm:.4f} ms; bounds: f32 FFMA {b_ms:.4f} ms ({b_by}: "
+              f"{flop:.4g} flop at 67 TFLOP/s, {12.0 * b_dim * s_dim ** 2:.4g}"
+              f" B), split TF32 {tc_ms:.4f} ms (3 x {flop:.4g} flop at 495 "
+              f"TFLOP/s); kernel at {b_ms / t_lm:.3f} of the f32 bound and "
+              f"{tc_ms / t_lm:.3f} of the tensor-core bound; kernel / bmm "
+              f"{t_lm / t_bmm:.3f}", flush=True)
     del ms_full, xa, yb
 
     ea_ms = cuda_ms(lambda: ea.expand_adaptive(leaf, cc, n), 50)
@@ -698,12 +769,63 @@ def main() -> int:
     run_par(random.key(8, device=dev))
     torch.cuda.synchronize()
     path_ms = (time.perf_counter() - t0) * 1e3
-    filt_bound, _ = bound(0.0, 2.0 * s_hmm ** 3 * scan_products(t_hmm - 1))
+    filt_flop = 2.0 * s_hmm ** 3 * scan_products(t_hmm - 1)
+    filt_bound, _ = bound(0.0, filt_flop)
+    filt_tc_bound = 3.0 * filt_flop / TF32_OPS_PER_S * 1e3
     print(f"[13 hmm parallel S={s_hmm} T={t_hmm}] {card}: "
           f"forward_filter_parallel {[round(w, 2) for w in walls]} ms wall "
           f"(3 runs; {scan_products(t_hmm - 1)} products of {s_hmm}^2, "
-          f"bound {filt_bound:.2f} ms at the f32 peak); build_hmm_parallel's "
-          f"run (filter + parallel FFBS) {path_ms:.2f} ms", flush=True)
+          f"bound {filt_bound:.2f} ms at the f32 peak, {filt_tc_bound:.2f} "
+          f"ms in split TF32); build_hmm_parallel's run (filter + parallel "
+          f"FFBS) {path_ms:.2f} ms", flush=True)
+
+    # Where the parallel filter's wall goes, from one profiled run: the
+    # log-matmul kernel's prologue and product launches, the scan's
+    # cat / _interleave copies, and the rest (the operators' build and
+    # the final logsumexp over (T-1, S, S), which is also timed alone).
+    f_wall, f_busy, per_kernel, f_ops, f_launch = profiled(
+        lambda: forward_filter_parallel(config, hmm_obs), 1)
+    split = {"prologue": 0.0, "product": 0.0, "scan copies": 0.0,
+             "other": 0.0}
+    for name, ms in per_kernel.items():
+        part = ("prologue" if "prologue" in name else
+                "product" if "product" in name else
+                "scan copies" if "Cat" in name or "copy" in name.lower()
+                else "other")
+        split[part] += ms
+    ms_full = config.transition_logits[None] + obs_ll[1:, None, :]
+    prefix = associative_scan(lm.log_matmul, ms_full)
+    alpha0 = config.prior_logits + obs_ll[0]
+    lse_ms = cuda_ms(lambda: torch.logsumexp(
+        alpha0[None, :, None] + prefix, dim=1), 3)
+    del ms_full, prefix
+    print(f"[13 hmm parallel split] {card}: profiled run {f_wall:.2f} ms "
+          f"wall, device busy {f_busy} ms, {f_ops:.0f} device ops, "
+          f"{f_launch:.2f} ms of host time in kernel-launch calls; device "
+          f"ms by part {({k: round(v, 4) for k, v in split.items()})}; the "
+          f"final logsumexp alone {lse_ms:.4f} ms (events); "
+          f"{top(per_kernel, 6)}", flush=True)
+
+    # The CDF kernel at config 3's and config 4's sizes.
+    cdf_rows = {}
+    for n_c in (1 << 19, 1 << 20):
+        lw_c = random.normal(random.key(7, device=dev), (n_c,))
+        key_c = random.key(8, device=dev)
+        t_c = cuda_ms(lambda: cdf_counts.systematic_cumulative(
+            key_c, lw_c, n_c), 100)
+        _, dev_c, per_kernel, ops_c, _ = profiled(
+            lambda: cdf_counts.systematic_cumulative(key_c, lw_c, n_c), 50)
+        b_c, by_c = bound(8.0 * n_c, 10.0 * n_c)
+        cdf_rows[n_c] = {"ms": t_c, "device_ms": dev_c, "bound_ms": b_c,
+                         "device_ops": ops_c}
+        print(f"[13 cdf_counts n={n_c}] {card}: {t_c:.5f} ms events, "
+              f"device {dev_c} ms ({top(per_kernel, 2)}), {ops_c:.0f} "
+              f"device ops a call; bound {b_c:.5f} ms ({by_c}: 8 B an "
+              f"element), {12.0 * n_c / HBM_BYTES_PER_S * 1e3:.5f} ms for "
+              f"this design's 12 B (for comparison, not from this run: the "
+              f"five-launch kernel it replaced took 0.02088 ms of device "
+              f"time at 2^20 plus the torch max, PERF.md section 6)",
+              flush=True)
 
     run3(random.key(4, device=dev))
     torch.cuda.synchronize()
@@ -743,7 +865,8 @@ def main() -> int:
          "ms": cdf_ms, "plain_ms": cdf_plain_ms,
          "bound_ms": cdf_bound, "bound_by": cdf_by, "library_ms": None,
          "device_ms": busy["cdf_counts"],
-         "plain_device_ms": busy["cdf_counts_plain"]},
+         "plain_device_ms": busy["cdf_counts_plain"],
+         "device_ops_per_call": cdf_ops[n_part], "by_size": cdf_rows},
         {"name": "fused_step", "route": "triton",
          "source": "genjax_torch/ops/_fused_step_triton.py",
          "replaces": "genjax_tpu/ops/fused_step.py:215",
@@ -763,6 +886,7 @@ def main() -> int:
          "max_abs_err": lm_err,
          "ms": lm_main["ms"], "plain_ms": lm_main["plain_ms"],
          "bound_ms": lm_main["bound_ms"], "bound_by": lm_main["bound_by"],
+         "tc_bound_ms": lm_main["tc_bound_ms"],
          "library_ms": None, "product_only_bmm_ms": lm_main["bmm_ms"],
          "device_ms": lm_main["device_ms"],
          "shape": [lm_main["batch"], s_hmm, s_hmm],

@@ -9,36 +9,49 @@
 //   out[n-1] = n_dest
 //
 // (n_dest, the number of destinations, is n when the ensemble keeps its
-// size.) m comes from the caller as a device scalar; the normalizer is the
-// total of pass 2, and u0 is drawn here from the key's two words exactly
-// as jax.random.uniform(key, ()) draws it (threefry2x32 of counter (0, 0),
+// size.) u0 is drawn here from the key's two words exactly as
+// jax.random.uniform(key, ()) draws it (threefry2x32 of counter (0, 0),
 // the xor of the two words, the top 23 bits as a mantissa in [1, 2),
 // minus one), so that no host-side key arithmetic precedes the launch.
 //
 // The TPU kernel carries a running (sum, max) pair across a sequential
-// grid. CUDA blocks run in no order, so both halves of that carry become
-// passes of their own (no atomics: every sum is taken in one fixed order,
-// so the result does not change from run to run):
-//   1. block_sums     each block sums exp(lw - m) over its tile;
-//   2. scan_blocks    one block turns the block sums into exclusive offsets
-//                     and the total;
-//   3. block_max      each block scans its tile plus its offset and keeps
-//                     the largest prefix value;
-//   4. scan_blocks    one block turns the block maxima into exclusive
-//                     prefix maxima;
-//   5. emit           each block recomputes the same prefix sums, lifts them
-//                     by its prefix maximum (the exact monotone repair: the
-//                     offset add can round below the previous block's last
-//                     value) and writes the clamped counts.
-// The prefix maximum is exact in floating point, so the counts are
-// nondecreasing, end at n_dest and sum to n_dest in every weight regime.
-// Any n: the ragged last tile is masked.
+// grid. CUDA blocks run in no order; here the carry takes two launches,
+// and the maximum m is found inside them (no reduction before the call):
+//   1. tile_partials  each block takes a tile of 4096 and writes its
+//                     maximum m_t and s_t = sum exp(lw - m_t) over it. It
+//                     also clears the look-back flags and the tile ticket
+//                     that launch 2 uses.
+//   2. emit           each block takes a tile by ticket (an atomic
+//                     counter, so that tiles are claimed in the order the
+//                     blocks start and none waits on a tile that is not
+//                     running). From the partials, a few KB in L2, it gets
+//                     m = max m_t, the total sum_t s_t exp(m_t - m) and its
+//                     tile's exclusive offset, every block in the same
+//                     fixed order and in double. It recomputes its tile's
+//                     prefix sums of exp(lw - m) plus the offset, lifts
+//                     them to their running maximum, and takes the running
+//                     maximum of all earlier tiles by a decoupled
+//                     look-back: each tile publishes its own maximum, then
+//                     the maximum of everything up to it, and the block
+//                     reads back up to 1024 predecessors at once until it
+//                     meets a published prefix. (The lift is the exact
+//                     monotone repair: an offset can round below the
+//                     previous tile's last value.) Then it writes the
+//                     clamped counts.
+// No float atomics: every sum is taken in one fixed order, so the result
+// does not change from run to run, and the maximum is exact in floating
+// point, so the counts are nondecreasing, end at n_dest and sum to n_dest
+// in every weight regime. Any n: the ragged last tile is masked. Offsets
+// in double keep every tile within an f32 rounding of the exact prefix
+// sum at any n.
 //
-// What bounds it on the card: bytes. At n = 2^20 passes 1, 3 and 5 each
-// read the 4 MB of log-weights and pass 5 writes 4 MB of counts, about
-// 16 MB in all against 3.35 TB/s (some 5 us); the rest is five launches.
-// Each block takes a 4096-element tile (1024 threads x 4), staged through
-// shared memory so that every global load and store is coalesced.
+// What bounds it on the card: bytes. Launch 1 reads the 4 MB of
+// log-weights at n = 2^20, launch 2 reads them again and writes 4 MB of
+// counts: 12 MB against 3.35 TB/s, about 3.6 us. Every block of launch 2
+// also reads the 8-byte partials of every tile from L2 (2 KB at 2^20).
+// At that size the time goes to launch 2's chain of dependent steps (the
+// ticket, the partials, the tile's scans, the look-back), each a round
+// trip to L2 or a barrier of 1024 threads, more than to its bytes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,16 +63,9 @@ constexpr int kThreads = 1024;
 constexpr int kItems = 4;
 constexpr int kTile = kThreads * kItems;
 constexpr unsigned kFull = 0xffffffffu;
-
-struct Sum {
-  __device__ static float id() { return 0.0f; }
-  __device__ static float op(float a, float b) { return a + b; }
-};
-
-struct Max {
-  __device__ static float id() { return 0.0f; }  // every prefix sum is >= 0
-  __device__ static float op(float a, float b) { return fmaxf(a, b); }
-};
+// Look-back flag states, in the high word beside the value's bits.
+constexpr unsigned long long kOwn = 1ull << 32;     // the tile's own max
+constexpr unsigned long long kPrefix = 2ull << 32;  // max of tiles 0..t
 
 __device__ __forceinline__ uint32_t rotl(uint32_t v, int r) {
   return (v << r) | (v >> (32 - r));
@@ -82,132 +88,222 @@ __device__ float uniform_from_key(const int64_t* key) {
   return __uint_as_float(((x0 ^ x1) >> 9) | 0x3F800000u) - 1.0f;
 }
 
+// max(a, b) that keeps a NaN of either operand, as jnp.max does.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+
+struct Sum {
+  __device__ static float id() { return 0.0f; }
+  template <class T>
+  __device__ static T op(T a, T b) { return a + b; }
+};
+
+struct Max {
+  __device__ static float id() { return 0.0f; }  // every prefix sum is >= 0
+  __device__ static float op(float a, float b) { return fmaxf(a, b); }
+};
+
+struct NanMax {
+  __device__ static float id() { return -INFINITY; }
+  __device__ static float op(float a, float b) { return nan_max(a, b); }
+};
+
 // Exclusive scan of one value per thread over the whole block, in a fixed
 // order. `total` receives the block's inclusive total.
-template <class Op>
-__device__ float block_exclusive_scan(float v, float* warp_buf, float* total) {
+template <class Op, class T>
+__device__ T block_exclusive_scan(T v, T* warp_buf, T* total) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float incl = v;
+  T incl = v;
   for (int o = 1; o < 32; o <<= 1) {
-    float t = __shfl_up_sync(kFull, incl, o);
+    T t = __shfl_up_sync(kFull, incl, o);
     if (lane >= o) incl = Op::op(t, incl);
   }
-  float excl = __shfl_up_sync(kFull, incl, 1);
+  T excl = __shfl_up_sync(kFull, incl, 1);
   if (lane == 0) excl = Op::id();
   if (lane == 31) warp_buf[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    float w = warp_buf[lane];
-    float wincl = w;
+    T w = warp_buf[lane];
+    T wincl = w;
     for (int o = 1; o < 32; o <<= 1) {
-      float t = __shfl_up_sync(kFull, wincl, o);
+      T t = __shfl_up_sync(kFull, wincl, o);
       if (lane >= o) wincl = Op::op(t, wincl);
     }
-    float wexcl = __shfl_up_sync(kFull, wincl, 1);
+    T wexcl = __shfl_up_sync(kFull, wincl, 1);
     if (lane == 0) wexcl = Op::id();
     warp_buf[lane] = wexcl;
     if (lane == 31) warp_buf[32] = wincl;
   }
   __syncthreads();
-  float out = warp == 0 ? excl : Op::op(warp_buf[warp], excl);
+  T out = warp == 0 ? excl : Op::op(warp_buf[warp], excl);
   *total = warp_buf[32];
   __syncthreads();
   return out;
 }
 
-// Load this block's tile of exp(lw - m) so that thread t holds elements
-// 4t .. 4t+3 of the tile; lanes past n hold 0.
-__device__ void load_tile(const float* lw, float m, int64_t n, float* smem,
-                          float x[kItems]) {
+// The block's reduction of one value per thread, in a fixed order.
+template <class Op>
+__device__ float block_reduce(float v, float* warp_buf) {
+  float total;
+  block_exclusive_scan<Op>(v, warp_buf, &total);
+  return total;
+}
+
+__global__ void __launch_bounds__(kThreads)
+tile_partials(const float* __restrict__ lw, int64_t n, float2* part,
+              unsigned long long* flags, unsigned* ticket) {
+  __shared__ float warp_buf[33];
   const int64_t base = (int64_t)blockIdx.x * kTile;
+  float x[kItems];
+  float m = -INFINITY;
   for (int j = 0; j < kItems; ++j) {
     const int64_t i = base + j * kThreads + threadIdx.x;
-    smem[j * kThreads + threadIdx.x] = i < n ? expf(lw[i] - m) : 0.0f;
+    x[j] = i < n ? lw[i] : -INFINITY;
+    m = nan_max(m, x[j]);
   }
-  __syncthreads();
-  for (int j = 0; j < kItems; ++j) x[j] = smem[threadIdx.x * kItems + j];
-  __syncthreads();
+  const float mt = block_reduce<NanMax>(m, warp_buf);
+  float s = 0.0f;
+  if (mt != -INFINITY)  // a tile of -inf adds nothing (and no NaN)
+    for (int j = 0; j < kItems; ++j) s += expf(x[j] - mt);
+  const float st = block_reduce<Sum>(s, warp_buf);
+  if (threadIdx.x == 0) {
+    part[blockIdx.x] = make_float2(mt, st);
+    flags[blockIdx.x] = 0;
+    if (blockIdx.x == 0) *ticket = 0;
+  }
 }
 
-// The tile's prefix sums plus `offset`, each lifted to the running
-// maximum inside the tile. Passes 3 and 5 both call this, so they see
-// the same numbers bit for bit.
-__device__ void tile_cum(const float* lw, float m, int64_t n, float offset,
-                         float* smem, float* warp_buf, float cum[kItems],
-                         float* tile_max) {
-  float x[kItems];
-  load_tile(lw, m, n, smem, x);
-  float tsum = x[0];
-  for (int j = 1; j < kItems; ++j) tsum += x[j];
-  float total;
-  float run = offset + block_exclusive_scan<Sum>(tsum, warp_buf, &total);
-  float tmax = 0.0f;
-  for (int j = 0; j < kItems; ++j) {
-    run += x[j];
-    tmax = fmaxf(tmax, run);
-    cum[j] = tmax;
-  }
-  float before = block_exclusive_scan<Max>(tmax, warp_buf, tile_max);
-  for (int j = 0; j < kItems; ++j) cum[j] = fmaxf(cum[j], before);
+__device__ __forceinline__ void publish(unsigned long long* flag,
+                                        unsigned long long state, float v) {
+  const unsigned long long word = state | __float_as_uint(v);
+  asm volatile("st.release.gpu.u64 [%0], %1;" ::"l"(flag), "l"(word)
+               : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
-block_sums(const float* lw, const float* m, int64_t n, float* sums) {
+__device__ __forceinline__ unsigned long long peek(
+    const unsigned long long* flag) {
+  unsigned long long word;
+  asm volatile("ld.acquire.gpu.u64 %0, [%1];"
+               : "=l"(word)
+               : "l"(flag)
+               : "memory");
+  return word;
+}
+
+// The maximum over tiles 0..t-1 of their cumulative values, read back
+// through the flags by the whole block, a window of kThreads tiles at a
+// time (one window while t <= kThreads): thread k waits for tile
+// end - kThreads + k to publish, and the window's values from its last
+// published prefix on (all of them if it has none) are combined.
+__device__ float look_back(const unsigned long long* flags, int64_t t,
+                           float* warp_buf) {
+  float prior = 0.0f;
+  for (int64_t end = t; end > 0; end -= kThreads) {
+    const int64_t i = end - kThreads + threadIdx.x;
+    unsigned long long word = 0;
+    if (i >= 0) {
+      do {
+        word = peek(&flags[i]);
+      } while ((word >> 32) == 0);
+    }
+    // 1 + the thread of the window's last prefix, or 0 without one.
+    const float last = block_reduce<Max>(
+        i >= 0 && word >= kPrefix ? (float)(threadIdx.x + 1) : 0.0f,
+        warp_buf);
+    const bool take = i >= 0 && (float)(threadIdx.x + 1) >= last;
+    prior = fmaxf(prior, block_reduce<Max>(
+                             take ? __uint_as_float((unsigned)word) : 0.0f,
+                             warp_buf));
+    if (last > 0.0f) break;
+  }
+  return prior;
+}
+
+// Two blocks an SM (32 registers a thread), so that a grid of 256 tiles
+// (n = 2^20) runs in one wave.
+__global__ void __launch_bounds__(kThreads, 2)
+emit(const float* __restrict__ lw, const int64_t* __restrict__ key,
+     int64_t n, int64_t n_dest, const float2* __restrict__ part,
+     unsigned long long* flags, unsigned* ticket, int32_t* __restrict__ out) {
   __shared__ float smem[kTile];
   __shared__ float warp_buf[33];
-  float x[kItems];
-  load_tile(lw, *m, n, smem, x);
-  float tsum = x[0];
-  for (int j = 1; j < kItems; ++j) tsum += x[j];
-  float total;
-  block_exclusive_scan<Sum>(tsum, warp_buf, &total);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
-}
+  __shared__ double dwarp_buf[33];
+  __shared__ float sh_m;
+  __shared__ double sh_offset;
+  __shared__ int64_t sh_tile;
+  if (threadIdx.x == 0) sh_tile = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const int64_t t = sh_tile;
+  const int64_t nb = (n + kTile - 1) / kTile;
+  // This tile's log-weights, loaded first so that their latency hides
+  // behind the work on the partials.
+  const int64_t base = t * kTile;
+  float raw[kItems];
+  for (int j = 0; j < kItems; ++j) {
+    const int64_t i = base + j * kThreads + threadIdx.x;
+    raw[j] = i < n ? lw[i] : -INFINITY;
+  }
 
-// One block: exclusive scan of `in[0..nb)` into `out`, each thread taking
-// a contiguous run of entries; the total goes to `*total`.
-template <class Op>
-__global__ void __launch_bounds__(kThreads)
-scan_blocks(const float* in, float* out, int64_t nb, float* total) {
-  __shared__ float warp_buf[33];
+  // The global maximum and this tile's offset from the partials, each
+  // thread taking a contiguous run of tiles. Offsets and the total are
+  // summed in double, so that at any n a tile's values sit within an f32
+  // rounding of the exact prefix sum (an f32 sum over thousands of tiles
+  // drifts by several ulps, a destination each at n = 2^24).
   const int64_t per = (nb + kThreads - 1) / kThreads;
   const int64_t lo = threadIdx.x * per;
   const int64_t hi = lo + per < nb ? lo + per : nb;
-  float acc = Op::id();
-  for (int64_t i = lo; i < hi; ++i) acc = Op::op(acc, in[i]);
-  float all;
-  float run = block_exclusive_scan<Op>(acc, warp_buf, &all);
-  if (threadIdx.x == 0) *total = all;
+  float m = -INFINITY;
+  for (int64_t i = lo; i < hi; ++i) m = nan_max(m, part[i].x);
+  m = block_reduce<NanMax>(m, warp_buf);
+  double acc = 0.0;
   for (int64_t i = lo; i < hi; ++i) {
-    out[i] = run;
-    run = Op::op(run, in[i]);
+    const float2 p = part[i];
+    if (p.x != -INFINITY) acc += (double)p.y * exp((double)p.x - m);
   }
-}
+  double total;
+  double run = block_exclusive_scan<Sum>(acc, dwarp_buf, &total);
+  for (int64_t i = lo; i < hi; ++i) {
+    if (i == t) sh_offset = run;
+    const float2 p = part[i];
+    if (p.x != -INFINITY) run += (double)p.y * exp((double)p.x - m);
+  }
+  if (threadIdx.x == 0) sh_m = m;
+  __syncthreads();
+  m = sh_m;
+  const double offset = sh_offset;
 
-__global__ void __launch_bounds__(kThreads)
-block_max(const float* lw, const float* m, int64_t n, const float* offsets,
-          float* maxima) {
-  __shared__ float smem[kTile];
-  __shared__ float warp_buf[33];
+  // This tile's prefix sums plus the offset, each lifted to the running
+  // maximum inside the tile. Thread k holds elements 4k .. 4k+3.
+  for (int j = 0; j < kItems; ++j)
+    smem[j * kThreads + threadIdx.x] = expf(raw[j] - m);
+  __syncthreads();
+  float x[kItems];
+  for (int j = 0; j < kItems; ++j) x[j] = smem[threadIdx.x * kItems + j];
+  float tsum = x[0];
+  for (int j = 1; j < kItems; ++j) tsum += x[j];
+  float tile_total;
+  run = offset + block_exclusive_scan<Sum>(tsum, warp_buf, &tile_total);
   float cum[kItems];
+  float tmax = 0.0f;
+  for (int j = 0; j < kItems; ++j) {
+    run += x[j];
+    tmax = fmaxf(tmax, (float)run);
+    cum[j] = tmax;
+  }
   float tile_max;
-  tile_cum(lw, *m, n, offsets[blockIdx.x], smem, warp_buf, cum, &tile_max);
-  if (threadIdx.x == 0) maxima[blockIdx.x] = tile_max;
-}
+  const float before = block_exclusive_scan<Max>(tmax, warp_buf, &tile_max);
 
-__global__ void __launch_bounds__(kThreads)
-emit(const float* lw, const float* m, const int64_t* key, const float* total,
-     int64_t n, int64_t n_dest, const float* offsets, const float* prior_max,
-     int32_t* out) {
-  __shared__ float smem[kTile];
-  __shared__ float warp_buf[33];
-  float cum[kItems];
-  float tile_max;
-  tile_cum(lw, *m, n, offsets[blockIdx.x], smem, warp_buf, cum, &tile_max);
-  const float lift = prior_max[blockIdx.x];
+  // The running maximum of all earlier tiles.
+  if (threadIdx.x == 0) publish(&flags[t], t == 0 ? kPrefix : kOwn, tile_max);
+  const float prior = look_back(flags, t, warp_buf);
+  if (threadIdx.x == 0 && t > 0)
+    publish(&flags[t], kPrefix, fmaxf(prior, tile_max));
+  const float lift = fmaxf(prior, before);
+
   const float nf = (float)n_dest;
-  const float scale = nf / *total;
+  const float scale = nf / (float)total;
   const float u0 = uniform_from_key(key);
   int32_t* sout = reinterpret_cast<int32_t*>(smem);
   for (int j = 0; j < kItems; ++j) {
@@ -216,7 +312,6 @@ emit(const float* lw, const float* m, const int64_t* key, const float* total,
     sout[threadIdx.x * kItems + j] = (int32_t)v;
   }
   __syncthreads();
-  const int64_t base = (int64_t)blockIdx.x * kTile;
   for (int j = 0; j < kItems; ++j) {
     const int64_t i = base + j * kThreads + threadIdx.x;
     if (i < n) {
@@ -231,35 +326,32 @@ emit(const float* lw, const float* m, const int64_t* key, const float* total,
 
 extern "C" {
 
-// Number of floats of scratch the launch needs for n elements.
-long long cdf_counts_scratch_floats(long long n) {
+// Bytes of scratch the launch needs for n elements: per tile a float2
+// partial and a u64 flag, then the ticket.
+long long cdf_counts_scratch_bytes(long long n) {
   const long long nb = (n + kTile - 1) / kTile;
-  return 4 * nb + 2;
+  return 16 * nb + 8;
 }
 
-// lw: f32[n] (n source particles); m: f32[1] = max(lw); key: int64[2], the
-// words of the resampling key; out: int32[n], the cumulative counts of
-// n_dest destinations; scratch: f32[cdf_counts_scratch_floats(n)]. All on
-// the device. Launches on `stream` and returns cudaGetLastError().
-int cdf_counts_launch(const float* lw, const float* m, const int64_t* key,
-                      int32_t* out, float* scratch, long long n,
-                      long long n_dest, void* stream) {
+// lw: f32[n] (n source particles); key: int64[2], the words of the
+// resampling key; out: int32[n], the cumulative counts of n_dest
+// destinations; scratch: cdf_counts_scratch_bytes(n) bytes, 8-byte
+// aligned. All on the device. Launches on `stream` and returns
+// cudaGetLastError().
+int cdf_counts_launch(const float* lw, const int64_t* key, int32_t* out,
+                      void* scratch, long long n, long long n_dest,
+                      void* stream) {
   if (n <= 0 || n_dest < 0 || n_dest > 2147483647LL)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long nb = (n + kTile - 1) / kTile;
-  float* sums = scratch;
-  float* offsets = scratch + nb;
-  float* maxima = scratch + 2 * nb;
-  float* prior_max = scratch + 3 * nb;
-  float* total = scratch + 4 * nb;
-  float* max_total = scratch + 4 * nb + 1;
-  block_sums<<<(unsigned)nb, kThreads, 0, s>>>(lw, m, n, sums);
-  scan_blocks<Sum><<<1, kThreads, 0, s>>>(sums, offsets, nb, total);
-  block_max<<<(unsigned)nb, kThreads, 0, s>>>(lw, m, n, offsets, maxima);
-  scan_blocks<Max><<<1, kThreads, 0, s>>>(maxima, prior_max, nb, max_total);
-  emit<<<(unsigned)nb, kThreads, 0, s>>>(lw, m, key, total, n, n_dest,
-                                         offsets, prior_max, out);
+  if (nb > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float2* part = static_cast<float2*>(scratch);
+  unsigned long long* flags = reinterpret_cast<unsigned long long*>(part + nb);
+  unsigned* ticket = reinterpret_cast<unsigned*>(flags + nb);
+  tile_partials<<<(unsigned)nb, kThreads, 0, s>>>(lw, n, part, flags, ticket);
+  emit<<<(unsigned)nb, kThreads, 0, s>>>(lw, key, n, n_dest, part, flags,
+                                         ticket, out);
   return (int)cudaGetLastError();
 }
 

@@ -5,14 +5,15 @@ PyTorch version.
 Replaces ``genjax_tpu/ops/cdf_counts.py::systematic_cumulative_pallas``
 (body ``_cdf_counts_kernel``). The TPU kernel carries a running (sum,
 max) pair across a sequential grid; on the card the blocks run in no
-order, so the kernel is a five-pass scan that keeps both halves of that
-carry without atomics (see the source's header). It is bound by bytes:
-about 16 MB at 2^20 particles, a few microseconds of the card's 3.35
-TB/s, so the five launches matter as much as the traffic.
+order, so the kernel is two launches: per-tile (max, sum) partials, then
+each tile's offsets from those partials, its prefix sums and a
+decoupled look-back for the cross-tile running maximum, without float
+atomics (see the source's header). It is bound by bytes: 12 MB at 2^20
+particles, a few microseconds of the card's 3.35 TB/s.
 
-``m = max(lw)`` is a torch reduction outside the kernel, as it is an XLA
-op outside the Pallas call in JAX. The normalizer is the kernel's own
-block-sum total, and ``u0`` is drawn inside the kernel from the key's
+``m = max(lw)`` is found inside the launches, so a call is two device
+operations and nothing more. The normalizer is the kernel's own total of
+the tile partials, and ``u0`` is drawn inside the kernel from the key's
 two words, bit for bit as ``random.uniform(key, ())``: the key
 arithmetic of the plain version is about a hundred tiny launches, which
 would cost more than the kernel. Nothing syncs the host.
@@ -57,12 +58,11 @@ def build() -> ctypes.CDLL:
     lib = load_cuda_library("cdf_counts", "cdf_counts.cu")
     lib.cdf_counts_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ]
     lib.cdf_counts_launch.restype = ctypes.c_int
-    lib.cdf_counts_scratch_floats.argtypes = [ctypes.c_longlong]
-    lib.cdf_counts_scratch_floats.restype = ctypes.c_longlong
+    lib.cdf_counts_scratch_bytes.argtypes = [ctypes.c_longlong]
+    lib.cdf_counts_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -83,18 +83,17 @@ def systematic_cumulative(key, log_weights: torch.Tensor,
     if k == 0 or not 0 <= n < 2**31:
         raise ValueError(f"cdf_counts: unsupported sizes k={k}, n={n}")
     lw = log_weights.contiguous()
-    m = lw.max()
     words = random.key_data(key.to(lw.device)).contiguous()
     if words.shape != (2,):
         raise ValueError("cdf_counts: one key of two words")
     lib = build()
     out = torch.empty(k, dtype=torch.int32, device=lw.device)
-    scratch = torch.empty(lib.cdf_counts_scratch_floats(k),
-                          dtype=torch.float32, device=lw.device)
+    scratch = torch.empty(lib.cdf_counts_scratch_bytes(k),
+                          dtype=torch.uint8, device=lw.device)
     stream = torch.cuda.current_stream(lw.device).cuda_stream
-    err = lib.cdf_counts_launch(lw.data_ptr(), m.data_ptr(),
-                                words.data_ptr(), out.data_ptr(),
-                                scratch.data_ptr(), k, n, stream)
+    err = lib.cdf_counts_launch(lw.data_ptr(), words.data_ptr(),
+                                out.data_ptr(), scratch.data_ptr(), k, n,
+                                stream)
     if err != 0:
         raise RuntimeError(f"cdf_counts kernel launch failed: CUDA error {err}")
     systematic_cumulative.launches += 1

@@ -6,9 +6,13 @@ Replaces ``genjax_tpu/ops/logmatmul.py::log_matmul_pallas`` (body
 ``_kernel``), the combine of the parallel-prefix HMM filter
 (``lang/distributions/discrete_hmm.py::forward_filter_parallel``). The
 TPU kernel takes one whole (S, S) block per grid step and needs S a
-multiple of 128, at most 1024; the Hopper kernel tiles the product, takes
-any shape, and is bound by its f32 multiply-adds (see the source's
-header). Full f32 throughout, no TF32: the JAX kernel accumulates in f32.
+multiple of 128, at most 1024; the Hopper kernel tiles the product and
+takes any shape. It runs the product on the tensor cores in split TF32
+(each f32 operand as a TF32 ``hi`` plus a TF32 ``lo``, three products
+``lo·hi + hi·lo + hi·hi`` into one f32 sum), which keeps about 22
+significant bits: plain TF32's 11 would miss the f32 tolerance. See the
+source's header for the launches, the bound and the TMA / ``wgmma``
+pipeline.
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ def build() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     lib.log_matmul_launch.restype = ctypes.c_int
+    lib.log_matmul_scratch_floats.argtypes = [ctypes.c_longlong] * 4
+    lib.log_matmul_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -91,15 +97,17 @@ def log_matmul(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     if b > 0:
         X, Y = _batch_stride(X), _batch_stride(Y)
         lib = build()
-        shifts = torch.empty(b * (m + n), dtype=torch.float32,
-                             device=X.device)
+        scratch = torch.empty(lib.log_matmul_scratch_floats(b, m, k, n),
+                              dtype=torch.float32, device=X.device)
         stream = torch.cuda.current_stream(X.device).cuda_stream
         err = lib.log_matmul_launch(
             X.data_ptr(), X.stride(0), Y.data_ptr(), Y.stride(0),
-            out.data_ptr(), shifts.data_ptr(), b, m, k, n, stream)
+            out.data_ptr(), scratch.data_ptr(), b, m, k, n, stream)
         if err != 0:
-            raise RuntimeError(f"log_matmul kernel launch failed: CUDA "
-                               f"error {err}")
+            raise RuntimeError(
+                "log_matmul kernel launch failed: "
+                + ("no tensor map from the CUDA driver" if err == -1
+                   else f"CUDA error {err}"))
         log_matmul.launches += 1
     return out[0] if squeeze else out
 
