@@ -5,22 +5,24 @@ time its kernels.
 
 Phases (each prints one line; any failure exits non-zero):
   1. card: name and power limit from nvidia-smi;
-  2. build: the three CUDA C++ kernels (CDF->counts, log-matmul,
-     expand_adaptive; one nvcc each, all started together) and the
-     fused-step kernel (Triton), from the sources in the checkout, into
-     genjax_torch/_build/;
+  2. build: the four CUDA C++ kernels (CDF->counts, log-matmul,
+     expand_adaptive, and the fused step once per model header: tracking
+     and linear), from the sources in the checkout, into
+     genjax_torch/_build/: five nvcc processes, all started together;
   3. the CDF->counts kernel against its plain version in five weight
      regimes at n = 1, 4097, 2^19, 2^20, a ragged size and 2^24 (more
      tiles than the card holds at once), and its device ops per call;
-  4. the fused-step kernel against its plain version at 2^20, f32 and
-     bf16 state;
+  4. the fused-step kernel: its threefry words bit for bit against
+     core.random (through the library's second entry point), then against
+     its plain version at 2^20, f32 and bf16 state, and at a ragged size;
   5. SIR through entry() at K = 64 and K = 2^16;
   6. bench config 4 (2^20 particles x 32 steps) through build_pf and
      build_pf_fused, with each run's kernel launch counts, and the
      linear-Gaussian model against its exact Kalman log Z;
-  7. timings: each kernel beside its plain version at 2^20, and
-     particle-steps/s of both config-4 drivers, with a profiled run's
-     device-busy time, device ops and host time in kernel launches;
+  7. timings: each kernel beside its plain version at 2^20 (the fused
+     step held to one device op a call), and particle-steps/s of both
+     config-4 drivers, with a profiled run's device-busy time, device ops
+     and host time in kernel launches;
   8. the log-matmul kernel against its plain version: B = 8 at S = 128,
      512, 1024; ragged S = 100, 200; K = 101 (unaligned rows); scale-30
      normals; B = 70000 (past the grid's z extent); unbatched; strided
@@ -28,7 +30,8 @@ Phases (each prints one line; any failure exits non-zero):
      1024, 1024); an empty batch (no launch); the -1e30 input and an all
      -inf row;
   9. the expand_adaptive kernel bit for bit against its plain version
-     and repeat_interleave at 2^20, in the JAX test file's regimes;
+     and repeat_interleave at 2^20, 2^20 + 37 and 2^24, in the JAX test
+     file's regimes;
  10. the discrete-HMM parallel path at full width (circulant(1024, 1024),
      T = 1024): build_hmm_parallel's run, with the log-matmul launches
      held to the scan's combine count, the parallel filter against the
@@ -38,7 +41,9 @@ Phases (each prints one line; any failure exits non-zero):
  12. expand_adaptive through its own entry point at 2^20;
  13. timings of the slice: each new kernel beside its plain version, its
      bounds and its library call at the main path's shapes, the CDF
-     kernel at 2^19 and 2^20, the full-width parallel filter's wall time
+     kernel at 2^19 and 2^20, expand_adaptive's device time beside
+     repeat_interleave's at 2^20 and 2^24, the full-width parallel
+     filter's wall time
      and how it splits between the log-matmul prologue and product, the
      scan's copies and the rest, and config 3's particle-steps/s with a
      profiled run's device-busy time.
@@ -52,6 +57,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -92,6 +98,21 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps: int) -> float:
+    """Host time of one call of ``fn`` (Python and launch, no sync), over
+    ``reps`` calls after a warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return dt
+
+
 def profiled(fn, reps: int):
     """Per call of ``fn`` under torch.profiler: ``(wall ms, device-busy
     ms, {kernel: ms}, device ops, host ms in kernel-launch calls)``.
@@ -121,44 +142,59 @@ def profiled(fn, reps: int):
     return wall, busy, per_kernel, ops / reps, launch_ms / reps
 
 
-# Names the probe's body resolves when Triton compiles it; bound by
-# threefry_bits(), after the card check, because triton imports only there.
-tl = _threefry2x32 = None
-
-
-def _threefry_bits_kernel(seed_ptr, out_ptr, n, BLOCK: tl.constexpr):
-    pid = tl.program_id(0)
-    offs = pid * BLOCK + tl.arange(0, BLOCK)
-    mask = offs < n
-    k0 = tl.load(seed_ptr).to(tl.uint32)
-    k1 = tl.load(seed_ptr + 1).to(tl.uint32)
-    ctr = offs.to(tl.uint32)
-    b0, b1 = _threefry2x32(k0, k1, ctr, tl.zeros_like(ctr))
-    tl.store(out_ptr + offs * 2, b0.to(tl.int64), mask=mask)
-    tl.store(out_ptr + offs * 2 + 1, b1.to(tl.int64), mask=mask)
-
-
-def threefry_bits(seeds, n: int, block: int = 1024):
+def threefry_bits(lib, seeds, n: int):
     """The two threefry2x32 words the fused-step kernel draws for
-    counters ``0..n-1`` (its own ``_threefry2x32``), as int64 ``(n, 2)``,
-    so that they can be held bit for bit against ``core.random``."""
-    global tl, _threefry2x32
+    counters ``0..n-1`` (its own ``threefry2x32``, through the library's
+    ``fused_step_threefry_bits``), as int64 ``(n, 2)``, so that they can
+    be held bit for bit against ``core.random``."""
     import torch
-    import triton
-    import triton.language as tl
-    from genjax_torch.ops._fused_step_triton import _threefry2x32
 
-    out = torch.empty((n, 2), dtype=torch.int64, device=seeds.device)
-    triton.jit(_threefry_bits_kernel)[(triton.cdiv(n, block),)](
-        seeds, out, n, BLOCK=block)
-    return out
+    out = torch.empty((n, 2), dtype=torch.int32, device=seeds.device)
+    err = lib.fused_step_threefry_bits(
+        seeds.data_ptr(), out.data_ptr(), n,
+        torch.cuda.current_stream(seeds.device).cuda_stream)
+    check(err == 0, f"threefry probe launch failed: CUDA error {err}")
+    return out.to(torch.int64) & 0xFFFFFFFF
+
+
+#: Integer opcodes of the SASS (the ALU and integer multiply-add pipes).
+INT_OPCODES = {"IADD3", "IADD", "IMAD", "LOP3", "LOP", "SHF", "SHL", "SHR",
+               "LEA", "ISETP", "IMNMX", "SEL", "PRMT", "VIADD", "IABS",
+               "POPC", "FLO"}
+
+
+def sass_int_ops(library: str, kernel: str) -> int:
+    """Integer instructions of the first kernel whose name holds
+    ``kernel`` in ``library``'s SASS (cuobjdump beside nvcc)."""
+    import os
+    import re
+
+    from genjax_torch.ops._build import _nvcc
+
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            if inside:
+                break
+            inside = kernel in line
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9]+)",
+                      line)
+        if inside and m and m.group(1) in INT_OPCODES:
+            count += 1
+    check(count > 0, f"no integer instructions found for {kernel}")
+    return count
 
 
 #: The card's peaks that bound a kernel (NVIDIA H100 SXM data sheet, at
 #: its 700 W limit): HBM3 bytes/s, and f32 operations/s outside the
 #: tensor cores, against which every operation is counted; TF32
 #: operations/s on the tensor cores (dense), the rate of log_matmul's
-#: split-TF32 route.
+#: split-TF32 route. The integer pipe (64 lanes a clock an SM, half the
+#: f32 rate) is read from the card itself in main().
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
@@ -217,7 +253,6 @@ def main() -> int:
 
     import genjax_torch
     from genjax_torch import entry as E
-    from genjax_torch import triton_models as TM
     from genjax_torch.core import random
     from genjax_torch.core.scan import associative_scan, count_combines
     from genjax_torch.inference import ImportanceK, Target
@@ -225,6 +260,7 @@ def main() -> int:
         DiscreteHMM, forward_filter, forward_filter_parallel)
     from genjax_torch.ops import (cdf_counts, expand_adaptive as ea,
                                   fused_step as fs, logmatmul as lm)
+    from genjax_torch.ops._build import BUILD_DIR
 
     check("jax" not in sys.modules, "the port imported jax")
     card = card_line()
@@ -234,20 +270,23 @@ def main() -> int:
 
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for job in [pool.submit(m.build) for m in (cdf_counts, lm, ea)]:
+    builds = [cdf_counts.build, lm.build, ea.build,
+              *(lambda m=m: fs.build(m.name)
+                for m in (E.TRACKING_CUDA, E.LINEAR_CUDA))]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        for job in [pool.submit(b) for b in builds]:
             job.result()
     nvcc_s = time.perf_counter() - t0
     probe = torch.zeros(4096, device=dev)
     cdf_counts.systematic_cumulative(random.key(1, device=dev), probe, 4096)
     fs.fused_step(random.key(1, device=dev), probe, probe, 0.0,
                   E.tracking_propagate, E.tracking_loglik,
-                  propagate_triton=TM.tracking_propagate,
-                  loglik_triton=TM.tracking_loglik)
+                  cuda_model=E.TRACKING_CUDA)
     torch.cuda.synchronize()
-    print(f"[2 build] cdf_counts, logmatmul, expand_adaptive (nvcc sm_90a, "
-          f"in parallel, {nvcc_s:.1f} s) + fused_step (triton) built and "
-          f"launched in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[2 build] cdf_counts, logmatmul, expand_adaptive, fused_step x "
+          f"(tracking, linear): {len(builds)} nvcc sm_90a in parallel, "
+          f"{nvcc_s:.1f} s; launched in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # -- 3. cdf kernel vs plain --------------------------------------------
     def exact_counts(key, lw, n):
@@ -322,7 +361,7 @@ def main() -> int:
     # -- 4. fused step vs plain --------------------------------------------
     n = 1 << 20
     seeds = random.key_data(random.fold_in(random.key(314159, device=dev), 3))
-    bits = threefry_bits(seeds, n)
+    bits = threefry_bits(fs.build(E.TRACKING_CUDA.name), seeds, n)
     ctr = torch.arange(n, dtype=torch.int64, device=dev)
     b0, b1 = random.threefry2x32(seeds[0], seeds[1], ctr,
                                  torch.zeros_like(ctr))
@@ -336,20 +375,23 @@ def main() -> int:
     lw0 = random.normal(random.key(2, device=dev), (n,)) * 0.3
     obs = torch.tensor(2.5, device=dev)
     fused_err = 0.0
-    # xs/lw: the kernel's sqrt/log1p/cos/exp are the card's own libdevice
-    # and approximate instructions, not torch's, so an element may move by
-    # a few ulp, amplified by the model (x^2 / 20, then a square): xs to
-    # 1e-3 and lw to 1e-2 absolute, on values of order 10 and 100.
-    for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 1e-3)):
-        xs = xs0.to(dtype)
-        out_k = fs.fused_step(seeds, xs, lw0, obs, E.tracking_propagate,
-                              E.tracking_loglik,
-                              propagate_triton=TM.tracking_propagate,
-                              loglik_triton=TM.tracking_loglik,
-                              state_dtype=dtype)
-        out_p = fs.fused_step_plain(seeds, xs, lw0, obs, E.tracking_propagate,
+    # xs/lw: the kernel's sqrt/log1p/cos are the card's libdevice, its
+    # divisions the fast ones and its exp the approximate instruction,
+    # not torch's, so an element may move by a few ulp, amplified by the
+    # model (x^2 / 20, then a square): xs to 1e-3 and lw to 1e-2 absolute,
+    # on values of order 10 and 100.
+    for dtype, tol, size in ((torch.float32, 1e-3, n),
+                             (torch.bfloat16, 1e-3, n),
+                             (torch.float32, 1e-3, 1_000_003)):
+        xs, lw_s = xs0[:size].to(dtype), lw0[:size]
+        out_k, again = (fs.fused_step(
+            seeds, xs, lw_s, obs, E.tracking_propagate, E.tracking_loglik,
+            cuda_model=E.TRACKING_CUDA, state_dtype=dtype) for _ in range(2))
+        out_p = fs.fused_step_plain(seeds, xs, lw_s, obs, E.tracking_propagate,
                                     E.tracking_loglik, state_dtype=dtype)
         torch.cuda.synchronize()
+        check(all(bool(torch.equal(a, b)) for a, b in zip(out_k, again)),
+              f"fused_step {dtype} n={size}: two calls differ")
         check(out_k[0].dtype == dtype and out_k[1].dtype == torch.float32,
               "fused_step output dtypes")
         x_err = float((out_k[0].float() - out_p[0].float()).abs().max())
@@ -363,10 +405,11 @@ def main() -> int:
         check(lse_err < 1e-4, f"fused_step {dtype} lse err {lse_err}")
         check(ess_rel < 1e-4, f"fused_step {dtype} ess rel err {ess_rel}")
         if dtype == torch.float32:
-            fused_err = max(x_err, lw_err)
-        print(f"[4 fused_step {str(dtype)[6:]}] bits+uniforms bitwise at "
-              f"2^20; |dx|={x_err:.3g} |dlw|={lw_err:.3g} "
-              f"|dlse|={lse_err:.3g} ess rel={ess_rel:.3g}", flush=True)
+            fused_err = max(fused_err, x_err, lw_err)
+        print(f"[4 fused_step {str(dtype)[6:]} n={size}] bits+uniforms "
+              f"bitwise at 2^20; |dx|={x_err:.3g} |dlw|={lw_err:.3g} "
+              f"|dlse|={lse_err:.3g} ess rel={ess_rel:.3g}; two calls equal "
+              f"bit for bit", flush=True)
 
     # -- main path: launch counts from here ---------------------------------
     def counts():
@@ -456,34 +499,45 @@ def main() -> int:
     cdf_plain_ms = cuda_ms(
         lambda: cdf_counts.systematic_cumulative_plain(key, lw, n_part), 50)
     xs = xs0.clone()
-    fused_ms = cuda_ms(lambda: fs.fused_step(
-        seeds, xs, lw0, obs, E.tracking_propagate, E.tracking_loglik,
-        propagate_triton=TM.tracking_propagate,
-        loglik_triton=TM.tracking_loglik), 50)
+
+    def fused_call():
+        return fs.fused_step(seeds, xs, lw0, obs, E.tracking_propagate,
+                             E.tracking_loglik, cuda_model=E.TRACKING_CUDA)
+
+    # Events time follows the host where the host is the slower side: the
+    # best of three rounds, and each wrapper's host time a call beside it
+    # (the CDF wrapper, unchanged since PR 3, as this host's yardstick).
+    fused_ms = min(cuda_ms(fused_call, 200) for _ in range(3))
+    fused_host = host_ms(fused_call, 200)
+    cdf_host = host_ms(
+        lambda: cdf_counts.systematic_cumulative(key, lw, n_part), 200)
     fused_plain_ms = cuda_ms(lambda: fs.fused_step_plain(
         seeds, xs, lw0, obs, E.tracking_propagate, E.tracking_loglik), 20)
-    busy = {}
+    busy, ops_per_call = {}, {}
     for name, fn, reps in (
         ("cdf_counts", lambda: cdf_counts.systematic_cumulative(key, lw,
                                                                 n_part), 50),
         ("cdf_counts_plain", lambda: cdf_counts.systematic_cumulative_plain(
             key, lw, n_part), 20),
-        ("fused_step", lambda: fs.fused_step(
-            seeds, xs, lw0, obs, E.tracking_propagate, E.tracking_loglik,
-            propagate_triton=TM.tracking_propagate,
-            loglik_triton=TM.tracking_loglik), 50),
+        ("fused_step", fused_call, 50),
         ("fused_step_plain", lambda: fs.fused_step_plain(
             seeds, xs, lw0, obs, E.tracking_propagate, E.tracking_loglik),
          20),
     ):
-        _, busy[name], per_kernel, _, _ = profiled(fn, reps)
+        _, busy[name], per_kernel, ops_per_call[name], _ = profiled(fn, reps)
         print(f"[7 profile {name}] {card}: device busy "
               f"{busy[name] if busy[name] is None else round(busy[name], 5)}"
-              f" ms per call; {top(per_kernel)}", flush=True)
+              f" ms per call, {ops_per_call[name]:.0f} device ops a call; "
+              f"{top(per_kernel)}", flush=True)
+    check(ops_per_call["fused_step"] == 1,
+          f"fused_step: {ops_per_call['fused_step']} device ops a call, not 1")
     print(f"[7 kernels] {card}: cdf_counts {cdf_ms:.4f} ms (plain "
           f"{cdf_plain_ms:.4f} ms); "
-          f"fused_step {fused_ms:.4f} ms (plain "
-          f"{fused_plain_ms:.4f} ms) at 2^20, CUDA events per call", flush=True)
+          f"fused_step {fused_ms:.4f} ms events (best of 3 x 200 calls), "
+          f"{busy['fused_step']} ms device, {ops_per_call['fused_step']:.0f} "
+          f"device op a call (plain {fused_plain_ms:.4f} ms) at 2^20, CUDA "
+          f"events per call; host time a call: fused_step {fused_host:.4f} "
+          f"ms, cdf_counts {cdf_host:.4f} ms", flush=True)
     rates = {}
     for name, run in (("build_pf", run_pf), ("build_pf_fused", run_fused)):
         run(random.key(1, device=dev))
@@ -597,22 +651,25 @@ def main() -> int:
         return cdf_counts.systematic_cumulative(
             random.key(23, device=dev), lw, n), leaf
 
-    n = 1 << 20
     cases = ("uniform", "mild", "skewed", "one_hot", "two_far", "head_tail",
              "int32", "block_boundary", "degenerate_tail")
-    for name in cases:
-        cc, leaf = expand_case(name, n)
-        got = ea.expand_adaptive(leaf, cc, n).view(torch.int32)
-        plain = ea.expand_adaptive_plain(leaf, cc, n).view(torch.int32)
-        rep = torch.repeat_interleave(leaf, torch.diff(
-            cc, prepend=cc.new_zeros(1)), output_size=n).view(torch.int32)
-        torch.cuda.synchronize()
-        check(bool(torch.equal(got, plain)) and bool(torch.equal(got, rep)),
-              f"expand_adaptive {name}: not bitwise the plain version and "
-              f"repeat_interleave")
+    ea_sizes = (1 << 20, (1 << 20) + 37, 1 << 24)
+    for n in ea_sizes:
+        for name in cases:
+            cc, leaf = expand_case(name, n)
+            got = ea.expand_adaptive(leaf, cc, n).view(torch.int32)
+            plain = ea.expand_adaptive_plain(leaf, cc, n).view(torch.int32)
+            rep = torch.repeat_interleave(leaf, torch.diff(
+                cc, prepend=cc.new_zeros(1)), output_size=n).view(torch.int32)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(got, plain))
+                  and bool(torch.equal(got, rep)),
+                  f"expand_adaptive {name} n={n}: not bitwise the plain "
+                  f"version and repeat_interleave")
+    n = 1 << 20
     print(f"[9 expand_adaptive] bitwise equal to its plain version and to "
-          f"repeat_interleave at 2^20 in {len(cases)} cases: "
-          f"{', '.join(cases)}", flush=True)
+          f"repeat_interleave at n = {', '.join(map(str, ea_sizes))} in "
+          f"{len(cases)} cases each: {', '.join(cases)}", flush=True)
 
     # -- 10. HMM parallel path at full width --------------------------------
     # circulant(1024, 1024), T = 1024: the top of the TPU kernel's range.
@@ -752,12 +809,32 @@ def main() -> int:
         leaf, counts_n, output_size=n), 50)
     _, ea_dev, per_kernel, _, _ = profiled(
         lambda: ea.expand_adaptive(leaf, cc, n), 50)
+    _, ea_lib_dev, _, _, _ = profiled(lambda: torch.repeat_interleave(
+        leaf, counts_n, output_size=n), 50)
     ea_bound, ea_by = bound(12.0 * n, 2.0 * 20 * n)
     print(f"[13 expand_adaptive n=2^20] {card}: kernel {ea_ms:.4f} ms "
           f"(device {ea_dev} ms: {top(per_kernel, 2)}), plain "
           f"{ea_plain_ms:.4f} ms, repeat_interleave (counts given) "
-          f"{ea_lib_ms:.4f} ms; bound {ea_bound:.5f} ms ({ea_by}: "
-          f"{12 * n} B)", flush=True)
+          f"{ea_lib_ms:.4f} ms (device {ea_lib_dev} ms); bound "
+          f"{ea_bound:.5f} ms ({ea_by}: {12 * n} B); kernel at "
+          f"{ea_bound / ea_dev:.3f} of its bound", flush=True)
+    # At 2^24 the 201 MB no longer fit the 50 MB L2.
+    n_big = 1 << 24
+    cc_big = cdf_counts.systematic_cumulative(
+        random.key(12, device=dev),
+        random.normal(random.key(11, device=dev), (n_big,)), n_big)
+    leaf_big = random.normal(random.key(13, device=dev), (n_big,))
+    counts_big = torch.diff(cc_big, prepend=cc_big.new_zeros(1))
+    _, ea_big_dev, _, _, _ = profiled(
+        lambda: ea.expand_adaptive(leaf_big, cc_big, n_big), 10)
+    _, ea_big_lib, _, _, _ = profiled(lambda: torch.repeat_interleave(
+        leaf_big, counts_big, output_size=n_big), 10)
+    ea_big_bound, _ = bound(12.0 * n_big, 0.0)
+    del cc_big, leaf_big, counts_big
+    print(f"[13 expand_adaptive n=2^24] {card}: kernel device {ea_big_dev} "
+          f"ms, repeat_interleave device {ea_big_lib} ms; bound "
+          f"{ea_big_bound:.5f} ms (bytes: {12 * n_big} B); kernel at "
+          f"{ea_big_bound / ea_big_dev:.3f} of its bound", flush=True)
 
     walls = []
     for _ in range(3):
@@ -847,10 +924,47 @@ def main() -> int:
     # Bounds of the two kernels of the first slice at 2^20: the CDF kernel
     # must read the log-weights and write the counts (8 B a particle, ~10
     # f32 operations); the fused step must read and write the state and
-    # the weights (16 B; ~200 operations: ~100 integer ops of threefry,
-    # Box-Muller, the model and the partial sums).
+    # the weights (16 B a particle), and run threefry's integer
+    # instructions, counted in the SASS of the library's one-counter
+    # threefry kernel, on the integer pipe: 64 lanes a clock on each SM at
+    # the card's top SM clock.
     cdf_bound, cdf_by = bound(8.0 * n_part, 10.0 * n_part)
-    fused_bound, fused_by = bound(16.0 * n_part, 200.0 * n_part)
+    int_ops = sass_int_ops(os.path.join(BUILD_DIR, "libfused_step_"
+                                        f"{E.TRACKING_CUDA.name}.so"),
+                           "threefry_bits")
+    sm_clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]) * 1e6
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    int_ops_per_s = 64.0 * n_sm * sm_clock_hz
+    fused_bytes_ms = 16.0 * n_part / HBM_BYTES_PER_S * 1e3
+    fused_int_ms = int_ops * n_part / int_ops_per_s * 1e3
+    fused_bound, fused_by = ((fused_bytes_ms, "bytes")
+                             if fused_bytes_ms >= fused_int_ms
+                             else (fused_int_ms, "operations"))
+    # The same step at 2^22 (four times the blocks): what it adds over
+    # 2^20 is the rate of the elementwise work, what 2^20 costs beyond a
+    # quarter of it the fixed tail (the statistics and the last block's
+    # fold).
+    n_4 = 4 * n_part
+    xs_4 = random.normal(random.key(1, device=dev), (n_4,))
+    lw_4 = random.normal(random.key(2, device=dev), (n_4,)) * 0.3
+    _, fused_dev_4, _, _, _ = profiled(lambda: fs.fused_step(
+        seeds, xs_4, lw_4, obs, E.tracking_propagate, E.tracking_loglik,
+        cuda_model=E.TRACKING_CUDA), 50)
+    del xs_4, lw_4
+    per_2_20 = (fused_dev_4 - busy["fused_step"]) / 3
+    print(f"[13 fused_step n=2^22] {card}: device {fused_dev_4} ms; "
+          f"{per_2_20:.5f} ms for each further 2^20, so 2^20 costs "
+          f"{busy['fused_step'] - per_2_20:.5f} ms beyond its elementwise "
+          f"rate", flush=True)
+    print(f"[13 fused_step bound] {card}: bytes {fused_bytes_ms:.5f} ms "
+          f"({16 * n_part} B); integer pipe {fused_int_ms:.5f} ms ({int_ops} "
+          f"integer instructions a counter in the threefry kernel's SASS, at "
+          f"64 lanes x {n_sm} SMs x {sm_clock_hz / 1e9:.3f} GHz); device "
+          f"{busy['fused_step']} ms is {fused_bound / busy['fused_step']:.3f} "
+          f"of the larger", flush=True)
     lm_main = lm_rows[s_hmm]
     record = {"kernels": [
         {"name": "cdf_counts", "route": "cuda",
@@ -864,18 +978,24 @@ def main() -> int:
          "max_abs_err": cdf_err,
          "ms": cdf_ms, "plain_ms": cdf_plain_ms,
          "bound_ms": cdf_bound, "bound_by": cdf_by, "library_ms": None,
-         "device_ms": busy["cdf_counts"],
+         "device_ms": busy["cdf_counts"], "host_ms": cdf_host,
          "plain_device_ms": busy["cdf_counts_plain"],
          "device_ops_per_call": cdf_ops[n_part], "by_size": cdf_rows},
-        {"name": "fused_step", "route": "triton",
-         "source": "genjax_torch/ops/_fused_step_triton.py",
+        {"name": "fused_step", "route": "cuda",
+         "source": "genjax_torch/csrc/fused_step.cu",
+         "models": ["genjax_torch/csrc/models/tracking.cuh",
+                    "genjax_torch/csrc/models/linear.cuh"],
          "replaces": "genjax_tpu/ops/fused_step.py:215",
          "launches": launches["fused_step"],
          "launches_by_run": {k: v["fused_step"] for k, v in by_run.items()},
          "max_abs_err": fused_err,
          "ms": fused_ms, "plain_ms": fused_plain_ms,
          "bound_ms": fused_bound, "bound_by": fused_by, "library_ms": None,
-         "device_ms": busy["fused_step"],
+         "bytes_bound_ms": fused_bytes_ms, "int32_bound_ms": fused_int_ms,
+         "int32_ops_per_element": int_ops,
+         "device_ms": busy["fused_step"], "host_ms": fused_host,
+         "device_ops_per_call": ops_per_call["fused_step"],
+         "by_size": {n_4: {"device_ms": fused_dev_4}},
          "plain_device_ms": busy["fused_step_plain"]},
         {"name": "log_matmul", "route": "cuda",
          "source": "genjax_torch/csrc/logmatmul.cu",
@@ -900,7 +1020,10 @@ def main() -> int:
          "max_abs_err": 0,
          "ms": ea_ms, "plain_ms": ea_plain_ms,
          "bound_ms": ea_bound, "bound_by": ea_by, "library_ms": ea_lib_ms,
-         "device_ms": ea_dev},
+         "device_ms": ea_dev, "library_device_ms": ea_lib_dev,
+         "by_size": {n_big: {"device_ms": ea_big_dev,
+                             "library_device_ms": ea_big_lib,
+                             "bound_ms": ea_big_bound}}},
     ], "particle_steps_per_s": rates}
     print(card, flush=True)
     print(json.dumps(record), flush=True)

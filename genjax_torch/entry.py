@@ -19,8 +19,10 @@
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (or another device); without a card it raises rather
-than run on the CPU. On a CUDA device the fused drivers take the models'
-Triton forms from ``genjax_torch/triton_models.py``.
+than run on the CPU. The fused drivers hand the kernel each model's CUDA
+form (:data:`TRACKING_CUDA`, :data:`LINEAR_CUDA`): its header under
+``genjax_torch/csrc/models/`` and the constants below, which the torch
+form reads too.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from genjax_torch.lang.distributions.discrete_hmm import (
     DiscreteHMMConfiguration,
 )
 from genjax_torch.models.hmm import hmm_bootstrap_filter
+from genjax_torch.ops.fused_step import CudaModel
 
 __all__ = [
     "quickstart_model",
@@ -47,11 +50,13 @@ __all__ = [
     "tracking_propagate",
     "tracking_loglik",
     "tracking_observations",
+    "TRACKING_CUDA",
     "build_pf",
     "build_pf_fused",
     "linear_propagate",
     "linear_loglik",
     "linear_observations",
+    "LINEAR_CUDA",
     "kalman_loglik",
     "build_linear_fused",
     "build_hmm_smc",
@@ -98,11 +103,13 @@ def entry(k_particles: int = 64, device=None):
     return sir_step, (random.key(0, device=device),)
 
 
-#: The models' constants, shared with their Triton forms
-#: (``triton_models.py``): the tracking model's process-noise sd and the
+#: The models' constants, shared with their CUDA forms
+#: (``csrc/models/*.cuh``): the tracking model's process-noise sd and the
 #: log-normalizer of its unit-variance likelihood.
 TRACKING_SD = math.sqrt(10.0)
 HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
+#: The tracking model for the fused-step kernel (``csrc/models/tracking.cuh``).
+TRACKING_CUDA = CudaModel("tracking", (TRACKING_SD, HALF_LOG_2PI))
 
 
 def tracking_propagate(x, e):
@@ -119,15 +126,6 @@ def tracking_observations(n_steps: int, device=None) -> torch.Tensor:
     """The config-4 observations: ``5 · normal(key(9), (T,))``."""
     return random.normal(random.key(9, device=_device(device)),
                          (n_steps,)) * 5.0
-
-
-def _triton_forms(device: torch.device, name: str):
-    if device.type != "cuda":
-        return None, None
-    from genjax_torch import triton_models
-
-    return (getattr(triton_models, f"{name}_propagate"),
-            getattr(triton_models, f"{name}_loglik"))
 
 
 def build_pf(n_particles: int, n_steps: int, state_dtype=torch.float32,
@@ -163,11 +161,10 @@ def build_pf_fused(n_particles: int, n_steps: int,
     """Config 4 through the fused-kernel filter. Returns ``(run, work)``
     as :func:`build_pf`."""
     device = _device(device)
-    prop_t, ll_t = _triton_forms(device, "tracking")
     pf = fused_particle_filter(
         lambda k: random.normal(k, (n_particles,)),
         tracking_propagate, tracking_loglik, n_particles,
-        state_dtype=state_dtype, propagate_triton=prop_t, loglik_triton=ll_t,
+        state_dtype=state_dtype, cuda_model=TRACKING_CUDA,
     )
     ys = tracking_observations(n_steps, device)
 
@@ -180,6 +177,10 @@ def build_pf_fused(n_particles: int, n_steps: int,
 
 LINEAR_A, LINEAR_Q, LINEAR_R = 0.9, 1.0, 0.3
 LINEAR_HALF_LOG_2PI_R = 0.5 * math.log(2 * math.pi * LINEAR_R)
+#: The linear-Gaussian model for the fused-step kernel
+#: (``csrc/models/linear.cuh``).
+LINEAR_CUDA = CudaModel("linear", (LINEAR_A, math.sqrt(LINEAR_Q), LINEAR_R,
+                                   LINEAR_HALF_LOG_2PI_R))
 
 
 def linear_propagate(x, e):
@@ -219,11 +220,9 @@ def build_linear_fused(n_particles: int, ys, device=None):
     zero (so that ``x_0 ~ N(0, 1)`` after one step, the Kalman prior).
     Returns ``run(key) -> log Z``."""
     device = _device(device)
-    prop_t, ll_t = _triton_forms(device, "linear")
     pf = fused_particle_filter(
         lambda k: torch.zeros(n_particles, device=k.device),
-        linear_propagate, linear_loglik, n_particles,
-        propagate_triton=prop_t, loglik_triton=ll_t,
+        linear_propagate, linear_loglik, n_particles, cuda_model=LINEAR_CUDA,
     )
     obs = torch.as_tensor(np.asarray(ys, np.float32), device=device)
 

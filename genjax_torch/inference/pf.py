@@ -22,7 +22,7 @@ from genjax_torch.core import random
 from genjax_torch.core.pytree import tree_leaves, tree_map
 from genjax_torch.gfi.gfn import GenerativeFunction
 from genjax_torch.inference.smc import resample_tree
-from genjax_torch.ops.fused_step import fused_step
+from genjax_torch.ops.fused_step import CudaModel, fused_step
 
 __all__ = [
     "FilterState",
@@ -114,8 +114,7 @@ def fused_particle_filter(
     ess_threshold: float = 0.5,
     resampling: str = "systematic",
     state_dtype=torch.float32,
-    propagate_triton=None,
-    loglik_triton=None,
+    cuda_model: CudaModel | None = None,
 ):
     """Particle filter whose per-step hot path (RNG + propagate + loglik +
     weight accumulate + logsumexp/ESS) is one fused kernel
@@ -125,9 +124,9 @@ def fused_particle_filter(
     - ``init(key) -> xs``: the initial ``(n_particles,)`` ensemble;
     - ``propagate(x, eps)`` / ``loglik(x_new, obs_t)``: the model's torch
       form, elementwise;
-    - ``propagate_triton`` / ``loglik_triton``: the same model as
-      ``@triton.jit`` functions, required when the ensemble lies on a
-      CUDA device.
+    - ``cuda_model``: the same model's CUDA form (the header the kernel
+      compiles in and its constants), required when the ensemble lies
+      off the CPU.
 
     Semantics match :func:`particle_filter`; the normal stream is the
     kernel's threefry-on-counter + Box–Muller, so the two agree
@@ -140,6 +139,10 @@ def fused_particle_filter(
         k_init, k_res, k_prop = _step_keys(key, n_steps)
         xs = init(k_init).to(state_dtype)
         dev = xs.device
+        if dev.type != "cpu" and cuda_model is None:
+            raise ValueError(f"fused_particle_filter: an ensemble on {dev} "
+                             f"steps through the kernel, which needs the "
+                             f"model's CUDA form (cuda_model=)")
         obs = torch.as_tensor(observations, dtype=torch.float32, device=dev)
         k_res, k_prop = k_res.to(dev), k_prop.to(dev)
         lw = torch.zeros(n_particles, device=dev)
@@ -156,8 +159,7 @@ def fused_particle_filter(
                 lw = torch.zeros_like(lw)
             xs, lw, lse, ess = fused_step(
                 k_prop[t], xs, lw, obs[t], propagate, loglik,
-                propagate_triton=propagate_triton,
-                loglik_triton=loglik_triton, state_dtype=state_dtype,
+                cuda_model=cuda_model, state_dtype=state_dtype,
             )
             log_zs.append(log_z + lse - log_n)
         return FilterState(xs, lw, log_z + lse - log_n), torch.stack(log_zs)

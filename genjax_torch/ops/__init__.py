@@ -1,6 +1,6 @@
-"""Kernels written by hand for Hopper, each beside its plain PyTorch
-version in the same module: ``cdf_counts`` (CUDA C++,
-``csrc/cdf_counts.cu``), ``fused_step`` (Triton,
-``_fused_step_triton.py``), ``logmatmul`` (CUDA C++,
-``csrc/logmatmul.cu``) and ``expand_adaptive`` (CUDA C++,
-``csrc/expand_adaptive.cu``)."""
+"""Kernels written by hand for Hopper in CUDA C++, each beside its plain
+PyTorch version in the same module: ``cdf_counts``
+(``csrc/cdf_counts.cu``), ``fused_step`` (``csrc/fused_step.cu``, with
+the model compiled in from ``csrc/models/``), ``logmatmul``
+(``csrc/logmatmul.cu``) and ``expand_adaptive``
+(``csrc/expand_adaptive.cu``)."""

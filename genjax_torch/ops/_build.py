@@ -3,9 +3,7 @@ package, into ``genjax_torch/_build/`` (listed in ``.gitignore``).
 
 CUDA C++ sources are compiled by ``nvcc`` into a shared library with a
 plain C interface and loaded with ``ctypes``: a build takes seconds
-because no PyTorch header is included. Triton kernels compile through
-Triton's own cache, pointed at ``_build/triton`` unless
-``TRITON_CACHE_DIR`` is already set.
+because no PyTorch header is included.
 """
 
 from __future__ import annotations
@@ -16,7 +14,7 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "load_cuda_library", "triton_cache_dir"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "load_cuda_library"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -37,20 +35,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def load_cuda_library(name: str, *sources: str) -> ctypes.CDLL:
+def load_cuda_library(name: str, *sources: str,
+                      include: str | None = None) -> ctypes.CDLL:
     """Compile ``csrc/<sources>`` into ``_build/lib<name>.so`` (again only
-    when a source is newer than the library) and load it. The caller
-    keeps the handle."""
+    when a source, or the header ``csrc/<include>`` that nvcc includes
+    before each of them, is newer than the library) and load it. The
+    caller keeps the handle."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     srcs = [os.path.join(CSRC_DIR, s) for s in sources]
+    pre = [] if include is None else [os.path.join(CSRC_DIR, include)]
     lib = os.path.join(BUILD_DIR, f"lib{name}.so")
     stale = not os.path.exists(lib) or any(
-        os.path.getmtime(s) > os.path.getmtime(lib) for s in srcs
+        os.path.getmtime(s) > os.path.getmtime(lib) for s in srcs + pre
     )
     if stale:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+        includes = [f for h in pre for f in ("-include", h)]
+        cmd = [_nvcc(), *NVCC_FLAGS, *includes, "-o", tmp, *srcs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)
@@ -60,12 +62,3 @@ def load_cuda_library(name: str, *sources: str) -> ctypes.CDLL:
             )
         os.replace(tmp, lib)
     return ctypes.CDLL(lib)
-
-
-def triton_cache_dir() -> str:
-    """Point Triton's cache at ``_build/triton`` unless already set."""
-    path = os.environ.setdefault(
-        "TRITON_CACHE_DIR", os.path.join(BUILD_DIR, "triton")
-    )
-    os.makedirs(path, exist_ok=True)
-    return path

@@ -4,12 +4,15 @@ for one 4-byte leaf: the kernel written in CUDA C++ for Hopper
 
 Replaces ``genjax_tpu/ops/expand_adaptive.py::expand_adaptive`` (body
 ``_kernel``). The TPU kernel's adaptive windows and integer telescope
-exist for the VPU's cost model and are not ported: on the card, one
-thread per destination binary-searches the cumulative counts and copies
-the source word. It is bound by bytes, 12 a destination (see the
-source's header). As in the JAX package, nothing on the product path
-calls it: ``inference/smc.py::resample_tree`` expands with
-``repeat_interleave``. Its entry point is this public function.
+exist for the VPU's cost model and are not ported: on the card the
+expansion is a merge path of the source ends and the destinations, cut
+into equal tiles of the merged sequence, so that every block does the
+same work whatever the counts, stages its windows in shared memory and
+writes its destinations as one contiguous run. It is bound by bytes, 12
+a destination (see the source's header). As in the JAX package, nothing
+on the product path calls it: ``inference/smc.py::resample_tree``
+expands with ``repeat_interleave``. Its entry point is this public
+function.
 """
 
 from __future__ import annotations

@@ -1,43 +1,54 @@
 """One particle-filter step in one pass: counter-based RNG + propagate +
 log-likelihood + weight accumulate + logsumexp / ESS statistics. The
-kernel is written in Triton for Hopper (``ops/_fused_step_triton.py``);
-its plain PyTorch version is :func:`fused_step_plain`.
+kernel is written in CUDA C++ for Hopper (``csrc/fused_step.cu``), one
+launch a step; its plain PyTorch version is :func:`fused_step_plain`.
 
 Replaces ``genjax_tpu/ops/fused_step.py::make_fused_step`` (body
 ``_fused_kernel``, with ``threefry2x32`` and ``normal_from_counter``).
 The TPU kernel traces the user's ``propagate`` / ``loglik`` Python
-callables into its body; the Triton kernel takes them as ``@triton.jit``
-functions passed as ``tl.constexpr`` arguments, so the model comes in
-two forms: torch callables for the plain version and Triton callables
+callables into its body; the CUDA kernel compiles the model in from a
+header of ``__device__`` functions (``csrc/models/<name>.cuh``), one
+library a model, so the model comes in two forms: torch callables for
+the plain version and a :class:`CudaModel` (the header's name and the
+constants it reads, taken from the same Python values as the torch form)
 for the kernel.
 
-What bounds it on the card: bytes. At 2^20 particles a step reads the
-state and the weights and writes them back, about 16 MB against 3.35
-TB/s; the threefry rounds (~100 integer ops per element) stay in
-registers. Each program takes one block of elements and writes its
-partial (max, sumexp) pairs of ``lw`` and ``2·lw``; a second one-program
-pass combines them in a fixed order (no atomics), so the step costs two
-launches and no host sync: the seeds and the observation are read
-through pointers from device tensors.
+What bounds it on the card: bytes and the integer pipe, about equally
+(see the source's header). Each block writes one partial (max, sumexp)
+pair of ``lw`` and ``2·lw``, and the last block to finish folds them in
+a fixed order (no float atomics), so a step is one launch and no host
+sync: the key's words and the observation are read through pointers
+from device tensors. The host path of a call is the checks, one
+``torch.empty`` (two for bf16 state) and one ctypes call.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from genjax_torch.core import random
 
 __all__ = [
+    "CudaModel",
     "normal_from_counter",
     "fused_step_plain",
     "fused_step",
-    "BLOCK",
+    "build",
 ]
 
-#: Elements per Triton program.
-BLOCK = 1024
+
+class CudaModel(NamedTuple):
+    """A scalar-state model's CUDA form: ``csrc/models/<name>.cuh``
+    defines its ``propagate`` and ``loglik``, which read ``params`` (float
+    constants, in the order the header lists)."""
+
+    name: str
+    params: tuple[float, ...]
 
 
 def _u24_to_unit(b: torch.Tensor) -> torch.Tensor:
@@ -75,41 +86,120 @@ def fused_step_plain(seeds, xs, lw, obs, propagate, loglik,
     return x_new.to(state_dtype), lw_new, lse, ess
 
 
+@functools.cache
+def build(model: str) -> ctypes.CDLL:
+    """Compile (at first use) and load the kernel's library for the model
+    ``csrc/models/<model>.cuh``, and set its functions' signatures, once
+    per process and model."""
+    from genjax_torch.ops._build import load_cuda_library
+
+    lib = load_cuda_library(f"fused_step_{model}", "fused_step.cu",
+                            include=f"models/{model}.cuh")
+    p = ctypes.c_void_p
+    lib.fused_step_launch.argtypes = [
+        p, p, p, p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, p,
+    ]
+    lib.fused_step_launch.restype = ctypes.c_int
+    lib.fused_step_partial_floats.argtypes = [ctypes.c_longlong]
+    lib.fused_step_partial_floats.restype = ctypes.c_longlong
+    lib.fused_step_threefry_bits.argtypes = [p, p, ctypes.c_longlong, p]
+    lib.fused_step_threefry_bits.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_floats(model: str, n: int) -> int:
+    """Floats of the partials a launch for ``n`` elements writes."""
+    return build(model).fused_step_partial_floats(n)
+
+
+@functools.cache
+def param_array(params: tuple[float, ...]) -> ctypes.Array:
+    """The model's constants as the float array the launch copies."""
+    return (ctypes.c_float * len(params))(*params)
+
+
+@functools.cache
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's last-block ticket for the launches on one stream:
+    zeroed once; every launch leaves it at 0 again."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
 def fused_step(seeds, xs, lw, obs, propagate, loglik, *,
-               propagate_triton=None, loglik_triton=None,
+               cuda_model: CudaModel | None = None,
                state_dtype=torch.float32):
     """One filter step ``(seeds, xs, lw, obs) -> (xs_new, lw_new, lse,
     ess)``: ``seeds`` the step key's two words, ``xs`` the state
     (``state_dtype``), ``lw`` f32 log-weights, ``obs`` a scalar
     observation. A CPU tensor takes :func:`fused_step_plain` with the
-    torch model; a CUDA tensor launches the Triton kernel with the Triton
-    model, or raises."""
+    torch model; a CUDA tensor launches the kernel with ``cuda_model``,
+    or raises. On the card the inputs must already conform (contiguous
+    ``xs`` / ``lw`` on one device, the key's int64 words there, ``obs`` a
+    one-element f32 tensor there or a number): nothing is converted but a
+    number. The outputs are new tensors; ``lse`` and ``ess`` are 0-d
+    views of the same allocation as ``lw_new``."""
     if xs.device.type == "cpu":
         return fused_step_plain(seeds, xs, lw, obs, propagate, loglik,
                                 state_dtype)
     if xs.device.type != "cuda":
         raise ValueError(f"fused_step: no kernel for {xs.device}")
-    if propagate_triton is None or loglik_triton is None:
-        raise ValueError(
-            "fused_step on a CUDA tensor needs the model's Triton form "
-            "(propagate_triton= and loglik_triton=)"
-        )
-    if xs.dtype != state_dtype or xs.ndim != 1:
-        raise ValueError(f"fused_step: xs must be 1-D {state_dtype}")
-    if lw.dtype != torch.float32 or lw.shape != xs.shape:
-        raise ValueError("fused_step: lw must be float32 shaped like xs")
-    if xs.shape[0] >= 1 << 32:
+    if cuda_model is None:
+        raise ValueError("fused_step on a CUDA tensor needs the model's CUDA "
+                         "form (cuda_model=)")
+    dev = xs.device
+    if (state_dtype not in (torch.float32, torch.bfloat16)
+            or xs.dtype != state_dtype or xs.ndim != 1
+            or not xs.is_contiguous()):
+        raise ValueError(f"fused_step: xs must be 1-D contiguous "
+                         f"{state_dtype} (float32 or bfloat16)")
+    if (lw.dtype != torch.float32 or lw.shape != xs.shape
+            or lw.device != dev or not lw.is_contiguous()):
+        raise ValueError("fused_step: lw must be contiguous float32 shaped "
+                         "like xs, on its device")
+    n = xs.shape[0]
+    if not 0 < n < 1 << 32:
         raise ValueError("fused_step: the element counter is 32-bit")
-    from genjax_torch.ops import _fused_step_triton as tk
-
-    seeds = torch.as_tensor(seeds, device=xs.device).to(torch.int64)
-    obs = torch.as_tensor(obs, dtype=torch.float32, device=xs.device)
-    xs_new, lw_new, lse, ess = tk.launch(
-        seeds.contiguous(), obs.reshape(1), xs.contiguous(), lw.contiguous(),
-        propagate_triton, loglik_triton, BLOCK,
+    if (not isinstance(seeds, torch.Tensor) or seeds.dtype != torch.int64
+            or seeds.shape != (2,) or seeds.device != dev
+            or not seeds.is_contiguous()):
+        raise ValueError("fused_step: seeds must be the key's two int64 "
+                         "words on the ensemble's device")
+    if not isinstance(obs, torch.Tensor):
+        obs = torch.tensor(float(obs), device=dev)
+    elif obs.dtype != torch.float32 or obs.numel() != 1 or obs.device != dev:
+        raise ValueError("fused_step: obs must be one float32 on the "
+                         "ensemble's device")
+    lib = build(cuda_model.name)
+    # One allocation for lw_new, the partials and (lse, ess), and x_new
+    # too where it is f32; each part starts on 16 bytes.
+    pad = -(-n // 4) * 4
+    n_part = _scratch_floats(cuda_model.name, n)
+    f32_state = state_dtype == torch.float32
+    head = pad if f32_state else 0
+    buf = torch.empty(head + pad + n_part + 2, dtype=torch.float32,
+                      device=dev)
+    xs_new = (buf[:n] if f32_state
+              else torch.empty(n, dtype=state_dtype, device=dev))
+    lw_new = buf[head:head + n]
+    stats_at = head + pad + n_part
+    base = buf.data_ptr()
+    # The current stream's handle without building a torch.cuda.Stream
+    # (the call torch.compile's generated code makes): 0.1 us, not 3.4.
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    err = lib.fused_step_launch(
+        seeds.data_ptr(), obs.data_ptr(), xs.data_ptr(), lw.data_ptr(),
+        xs_new.data_ptr(), base + 4 * head, base + 4 * (head + pad),
+        base + 4 * stats_at, _ticket(dev, stream).data_ptr(), n,
+        int(not f32_state), param_array(cuda_model.params),
+        len(cuda_model.params), stream,
     )
+    if err != 0:
+        raise RuntimeError(f"fused_step kernel launch failed: CUDA error "
+                           f"{err}")
     fused_step.launches += 1
-    return xs_new, lw_new, lse, ess
+    return xs_new, lw_new, buf[stats_at], buf[stats_at + 1]
 
 
 #: Kernel launches so far (the CPU path does not count).
