@@ -46,10 +46,24 @@ Phases (each prints one line; any failure exits non-zero):
      filter's wall time
      and how it splits between the log-matmul prologue and product, the
      scan's copies and the rest, and config 3's particle-steps/s with a
-     profiled run's device-busy time.
+     profiled run's device-busy time;
+ 14. edits on the card: Distribution.edit and Fn.edit (Update,
+     Regenerate, StaticRequest) on a 2^19 key batch of config 6's model,
+     against the same code on the CPU on the same key data; the
+     Regenerate weight identity and the backward requests' round trip;
+ 15. bench config 6 (tempered SMC, 2^19 particles x 16 rungs x 2 MH
+     moves) through build_tempered_smc: log Z against the closed form,
+     the acceptance, the CDF kernel's launches, particle-rung-moves/s, a
+     profiled run's device ops, busy time and idle share, and the PyTorch
+     ops a run dispatches, by the port's module that issued them;
+ 16. hmm_model through the Scan combinator at 64 states x 64 steps x 2^19
+     particles: the constrained generate's weight against the emission
+     log-probabilities summed by hand, assess against the simulate score,
+     and an IndexRequest(t, Regenerate(z)) against the Regenerate
+     identity.
 Each path's kernel launches are counted from 0 just before it runs. The
-last two lines are the card's line and the kernels' JSON record, then
-the result line.
+last three lines are the card's line, the kernels' JSON record and the
+result line.
 There is no CPU path: without a CUDA card the script fails.
 """
 
@@ -140,6 +154,30 @@ def profiled(fn, reps: int):
             launch_ms += evt.cpu_time_total / 1e3
     busy = sum(per_kernel.values()) if per_kernel else None
     return wall, busy, per_kernel, ops / reps, launch_ms / reps
+
+
+def ops_by_module(fn) -> dict:
+    """The PyTorch ops that one call of ``fn()`` dispatches, by the
+    innermost ``genjax_torch`` module on the Python stack of each (the
+    layer that issued it): ``{module: count}``, most first."""
+    import collections
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    by = collections.Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            f = sys._getframe(1)
+            while f is not None and "genjax_torch" not in f.f_code.co_filename:
+                f = f.f_back
+            by["(outside)" if f is None else
+               f.f_code.co_filename.split("genjax_torch" + os.sep)[-1]] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return dict(by.most_common())
 
 
 def threefry_bits(lib, seeds, n: int):
@@ -238,6 +276,202 @@ def lw_regime(regime: str, n: int, dev):
     if regime == "one_hot":
         return torch.where(idx == min(12345, n // 3), 0.0, -1e9)
     return torch.where(idx < 9, 8.0, -2.0)          # head_tail
+
+
+def _close(a, b, scale=None):
+    """``|a - b| <= 1e-5 (1 + |b|)``, plus ``1e-6 scale``: a weight that
+    is the difference of two f32 sums of magnitude ``scale`` carries
+    their rounding, which the two devices do in their own orders. Returns
+    the worst ratio of the difference to the bound."""
+    import torch
+
+    a, b = a.double().cpu(), b.double().cpu()
+    tol = 1e-5 * (1 + b.abs())
+    if scale is not None:
+        tol = tol + 1e-6 * scale.double().cpu()
+    return float(((a - b).abs() / tol).max())
+
+
+def edits_phase(dev, card: str, n: int = 1 << 19) -> dict:
+    """Phase 14: config 6's model on a key batch of ``n``, edited on the
+    card and on the CPU from the same key data."""
+    import torch
+
+    import genjax_torch as g
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+    from genjax_torch.inference import Target, batched_importance
+
+    def run(device):
+        ys = E.tempered_observations(64, device=device)
+        target = Target(E.tempered_model(64), (E.TEMPERED_SIGMA,),
+                        g.C["ys"].set(ys))
+        keys = random.fold_in(random.key(21, device=device),
+                              torch.arange(n, device=device))
+        ekeys = random.fold_in(random.key(22, device=device),
+                               torch.arange(n, device=device))
+        tr, w0 = batched_importance(target, keys, g.ChoiceMap.empty())
+        mu = tr.get_choices()["mu"]
+        new_mu = 0.5 * mu + 0.75
+        out = {"w_generate": w0, "mu": mu}
+        dist = tr.get_subtrace("mu")
+        d_args = g.Diff.no_change(dist.get_args())
+        d_new = g.Diff.unknown_change((0.5, 2.0))
+        for name, (req, args) in {
+            "dist_update": (g.Update(g.ChoiceMap.choice(new_mu)), d_args),
+            "dist_update_new_args": (g.Update(g.ChoiceMap.empty()), d_new),
+            "dist_regenerate": (g.Regenerate(g.Selection.all()), d_args),
+            "dist_regenerate_new_args": (g.Regenerate(g.Selection.all()),
+                                         d_new),
+        }.items():
+            new, w, _, _ = dist.get_gen_fn().edit(ekeys, dist, req, args)
+            out[name] = (w, new.get_retval())
+        for name, req in {
+            "update": g.Update(g.C["mu"].set(new_mu)),
+            "regenerate": g.Regenerate(g.Selection.at["mu"]),
+            "static": g.StaticRequest({"mu": g.Regenerate(g.Selection.all()),
+                                       "ys": g.Update(g.ChoiceMap.empty())}),
+        }.items():
+            new, w, _, bwd = tr.edit(ekeys, req)
+            sites = [(new.get_subtrace(a).get_score(),
+                      tr.get_subtrace(a).get_score()) for a in ("mu", "ys")]
+            out[name] = (w, new.get_choices()["mu"])
+            out[name + "_scale"] = sum(s.abs() + o.abs() for s, o in sites)
+            if name == "regenerate":
+                # w = Δscore - Δ(log-density of the regenerated site), in
+                # float64 from the sites' scores.
+                d_score = sum(s.double() - o.double() for s, o in sites)
+                d_site = sites[0][0].double() - sites[0][1].double()
+                out["identity"] = (w, d_score - d_site)
+                # The reverse move lands on the old value: the Update that
+                # puts it back weighs -Δscore, and less its site's density
+                # change that is -w.
+                back, wb, _, _ = new.edit(ekeys, g.Update(g.C["mu"].set(mu)))
+                out["regen_back"] = (
+                    wb.double() + d_site,  # = -(w) when restored
+                    -w.double())
+                out["regen_back_mu"] = back.get_choices()["mu"]
+            if name == "update":
+                back, wb, _, _ = new.edit(ekeys, bwd)
+                out["update_back"] = (wb, -w)
+                out["update_back_mu"] = back.get_choices()["mu"]
+        return out
+
+    t0 = time.perf_counter()
+    on_card = run(dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = run(torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    worst = {}
+    for name in ("w_generate", "mu"):
+        worst[name] = _close(on_card[name], on_cpu[name])
+    for name in ("dist_update", "dist_update_new_args", "dist_regenerate",
+                 "dist_regenerate_new_args", "update", "regenerate",
+                 "static"):
+        (w_g, v_g), (w_c, v_c) = on_card[name], on_cpu[name]
+        worst[name + " w"] = _close(w_g, w_c, on_cpu.get(name + "_scale"))
+        worst[name + " value"] = _close(v_g, v_c)
+        worst[name + " w plain"] = _close(w_g, w_c)
+    for side in (on_card, on_cpu):
+        w, want = side["identity"]
+        worst["identity"] = max(worst.get("identity", 0.0),
+                                _close(w, want, side["regenerate_scale"]))
+        wb, want = side["regen_back"]
+        worst["regenerate back"] = max(worst.get("regenerate back", 0.0),
+                                       _close(wb, want,
+                                              side["regenerate_scale"]))
+        wb, want = side["update_back"]
+        worst["update back"] = max(worst.get("update back", 0.0),
+                                   _close(wb, want, side["update_scale"]))
+        check(bool(torch.equal(side["update_back_mu"], side["mu"]))
+              and bool(torch.equal(side["regen_back_mu"], side["mu"])),
+              "edits: a backward request did not restore the old choices")
+    bad = {k: v for k, v in worst.items() if v > 1.0 and "plain" not in k}
+    check(not bad, f"edits: card vs CPU beyond the bound: {bad}")
+    print(f"[14 edits] {card}: config 6's model at {n} particles on the card "
+          f"({card_s:.2f} s) and the CPU ({cpu_s:.2f} s), same key data: "
+          f"worst |card - cpu| / bound by check "
+          f"{({k: round(v, 4) for k, v in worst.items()})} (bound 1e-5 "
+          f"(1 + |w|), plus 1e-6 of the edited sites' score magnitudes "
+          f"for a weight; 'plain' rows show the first term alone, not "
+          f"held); Regenerate identity and both backward round trips hold",
+          flush=True)
+    return {k: v for k, v in worst.items()}
+
+
+def hmm_phase(dev, card: str, n: int = 1 << 19, n_states: int = 64,
+              n_steps: int = 64) -> None:
+    """Phase 16: hmm_model through Scan at 64 x 64 x 2^19."""
+    import torch
+
+    import genjax_torch as g
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+
+    generate, model, _, problem = E.build_hmm_model(n_states, n_steps, n,
+                                                    device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr, w = generate(random.key(31, device=dev))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    ch = tr.get_choices()
+    z = torch.cat([ch["z0"][:, None], ch["chain", :, "z"]], 1)
+    obs = problem.observations
+    emit = torch.log_softmax(problem.config.observation_logits.double(), -1)
+    hand = emit[z, obs[None, :]].sum(-1)
+    gen_err = float(((w.double() - hand).abs() / (1 + hand.abs())).max())
+    check(gen_err <= 1e-4, f"hmm generate: weight vs hand sum, rel {gen_err}")
+    # IndexRequest(t, Regenerate(z)) inside the chain.
+    t = n_steps // 2 - 1
+    keys = random.split(random.key(32, device=dev), n)
+    t0 = time.perf_counter()
+    new, wr, _, _ = tr.edit(keys, g.StaticRequest(
+        {"chain": g.IndexRequest(t, g.Regenerate(g.Selection.at["z"]))}))
+    torch.cuda.synchronize()
+    edit_s = time.perf_counter() - t0
+    old_c, new_c = tr.get_subtrace("chain"), new.get_subtrace("chain")
+    d_score = sum(
+        (new_c.inner.get_subtrace(a).get_score().double()
+         - old_c.inner.get_subtrace(a).get_score().double()).sum(-1)
+        for a in ("z", "x"))
+    d_site = (new_c.inner.get_subtrace("z").get_score()[:, t].double()
+              - old_c.inner.get_subtrace("z").get_score()[:, t].double())
+    id_err = _close(wr, d_score - d_site)
+    check(id_err <= 1.0, f"hmm IndexRequest: Regenerate identity {id_err}")
+    check(bool(torch.equal(new.get_choices()["chain", :, "x"],
+                           ch["chain", :, "x"])),
+          "hmm IndexRequest: the observations moved")
+    moved = float((new.get_choices()["chain", :, "z"][:, t]
+                   != ch["chain", :, "z"][:, t]).double().mean())
+    peak_gen = torch.cuda.max_memory_allocated() / 1e9
+    del tr, new, old_c, new_c, ch
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = model.simulate(random.split(random.key(33, device=dev), n), ())
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    score, _ = model.assess(sim.get_choices(), (), batch=(n,))
+    torch.cuda.synchronize()
+    assess_s = time.perf_counter() - t0
+    as_err = _close(score, sim.get_score())
+    check(as_err <= 1.0, f"hmm assess vs simulate score: {as_err}")
+    peak_sim = torch.cuda.max_memory_allocated() / 1e9
+    del sim, score
+    print(f"[16 hmm_model] {card}: {n_states} states x {n_steps} steps x "
+          f"{n} particles through Scan: "
+          f"generate {gen_s:.2f} s (weight vs the hand sum of log-softmaxed "
+          f"emissions, max rel {gen_err:.3g}, bound 1e-4); "
+          f"IndexRequest({t}, Regenerate(z)) {edit_s:.2f} s (identity "
+          f"{id_err:.3g} of its bound, z moved in {moved:.3f} of the "
+          f"particles); simulate {sim_s:.2f} s, assess {assess_s:.2f} s "
+          f"(vs the simulate score {as_err:.3g} of its bound); peak device "
+          f"memory {peak_gen:.1f} GB (generate + edit), {peak_sim:.1f} GB "
+          f"(simulate + assess)", flush=True)
 
 
 def main() -> int:
@@ -965,16 +1199,72 @@ def main() -> int:
           f"64 lanes x {n_sm} SMs x {sm_clock_hz / 1e9:.3f} GHz); device "
           f"{busy['fused_step']} ms is {fused_bound / busy['fused_step']:.3f} "
           f"of the larger", flush=True)
+    # -- 14. edits on the card against the CPU ------------------------------
+    c6_edit = edits_phase(dev, card)
+
+    # -- 15. config 6: tempered SMC at 2^19 x 16 x 2 ------------------------
+    run6, exact6 = E.build_tempered_smc(device=dev)
+    zero_counts()
+    res6 = run6(random.key(1, device=dev))
+    torch.cuda.synchronize()
+    c6_launches = counts()
+    logz6, acc6 = float(res6.log_z), float(res6.accept_rate.mean())
+    check(c6_launches["cdf_counts"] >= 1,
+          "config 6: the CDF kernel never ran")
+    check(c6_launches["fused_step"] == c6_launches["log_matmul"]
+          == c6_launches["expand_adaptive"] == 0,
+          f"config 6 launched another kernel: {c6_launches}")
+    check(math.isfinite(logz6) and abs(logz6 - exact6) <= 0.02,
+          f"config 6: log Z {logz6} vs closed form {exact6}")
+    check(0.0 < acc6 < 1.0, f"config 6: mean acceptance {acc6}")
+    ys6 = res6.traces.get_choices()["ys"]
+    check(ys6.stride(0) == 0, "config 6: the observations were copied")
+    del res6
+    prm = (1 << 19) * 16 * 2
+    walls6 = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run6(random.key(2 + i, device=dev))
+        torch.cuda.synchronize()
+        walls6.append(time.perf_counter() - t0)
+    dt6 = sorted(walls6)[1]
+    rates["build_tempered_smc"] = prm / dt6
+    torch.cuda.reset_peak_memory_stats()
+    wall, dbusy, per_kernel, ops, launch_ms = profiled(
+        lambda: run6(random.key(9, device=dev)), 1)
+    peak6 = torch.cuda.max_memory_allocated() / 1e9
+    idle6 = None if dbusy is None else 1.0 - dbusy / wall
+    mods6 = ops_by_module(lambda: run6(random.key(10, device=dev)))
+    torch.cuda.synchronize()
+    print(f"[15 config 6] {card}: 2^19 x 16 rungs x 2 moves: log Z "
+          f"{logz6:.5f} vs closed form {exact6:.5f} (|err| "
+          f"{abs(logz6 - exact6):.5f}, bound 0.02); mean acceptance "
+          f"{acc6:.4f}; launches {c6_launches}; wall per run "
+          f"{[round(w * 1e3, 2) for w in walls6]} ms (median "
+          f"{dt6 * 1e3:.2f} ms), {rates['build_tempered_smc']:.4g} "
+          f"particle-rung-moves/s; profiled run {wall:.2f} ms, device busy "
+          f"{dbusy} ms, idle share {idle6}, {ops:.0f} device ops, "
+          f"{launch_ms:.2f} ms of host time in kernel-launch calls, peak "
+          f"device memory {peak6:.2f} GB; {top(per_kernel, 6)}; PyTorch ops "
+          f"dispatched a run by the module that issued them {mods6}",
+          flush=True)
+
+    # -- 16. hmm_model through Scan at 64 x 64 x 2^19 -----------------------
+    hmm_phase(dev, card)
+
     lm_main = lm_rows[s_hmm]
     record = {"kernels": [
         {"name": "cdf_counts", "route": "cuda",
          "source": "genjax_torch/csrc/cdf_counts.cu",
          "replaces": "genjax_tpu/ops/cdf_counts.py:175",
-         "launches": launches["cdf_counts"] + c3_launches["cdf_counts"],
+         "launches": (launches["cdf_counts"] + c3_launches["cdf_counts"]
+                      + c6_launches["cdf_counts"]),
          "launches_by_run": {
              **{k: v["cdf_counts"] for k, v in by_run.items()},
              "config_4_path": launches["cdf_counts"],
-             "build_hmm_smc": c3_launches["cdf_counts"]},
+             "build_hmm_smc": c3_launches["cdf_counts"],
+             "build_tempered_smc": c6_launches["cdf_counts"]},
          "max_abs_err": cdf_err,
          "ms": cdf_ms, "plain_ms": cdf_plain_ms,
          "bound_ms": cdf_bound, "bound_by": cdf_by, "library_ms": None,
@@ -1024,7 +1314,13 @@ def main() -> int:
          "by_size": {n_big: {"device_ms": ea_big_dev,
                              "library_device_ms": ea_big_lib,
                              "bound_ms": ea_big_bound}}},
-    ], "particle_steps_per_s": rates}
+    ], "particle_steps_per_s": rates,
+        "config_6": {"log_z": logz6, "exact_log_z": exact6,
+                     "accept_rate": acc6, "wall_ms": [w * 1e3 for w in walls6],
+                     "particle_rung_moves_per_s": rates["build_tempered_smc"],
+                     "device_busy_ms": dbusy, "idle_share": idle6,
+                     "peak_gb": peak6, "ops_by_module": mods6},
+        "edits": c6_edit}
     print(card, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """genjax_torch: the PyTorch / CUDA port of genjax_tpu for one NVIDIA
 H100, slice by slice. Ported so far: the main path (the ``@gen``
 language, the GFI data types, importance sampling / SIR and particle
-filtering with systematic resampling) and the discrete-HMM slice (the
+filtering with systematic resampling), the discrete-HMM slice (the
 exact ``DiscreteHMM`` posterior with its parallel-prefix filter, the
-exact testbed, the HMM bootstrap filter), with every kernel of the JAX
-package written by hand for Hopper (``ops/``). The package imports
+exact testbed, the HMM bootstrap filter), and the edits slice (the five
+GFI methods with ``edit``, the Vmap / repeat and Scan combinators, MH and
+the tempered SMC samplers), with every kernel of the JAX package written
+by hand for Hopper (``ops/``). The package imports
 ``torch`` and never ``jax``.
 """
 
@@ -29,6 +31,7 @@ from genjax_torch.gfi.choice_map import (
 from genjax_torch.gfi.concepts import (
     Argdiffs,
     EditRequest,
+    IndexRequest,
     NotSupportedEditRequest,
     PrimitiveEditRequest,
     Retdiff,
@@ -41,7 +44,12 @@ from genjax_torch.gfi.gfn import (
     Trace,
 )
 from genjax_torch.gfi.mask import Mask
-from genjax_torch.gfi.requests import Regenerate, Update
+from genjax_torch.gfi.requests import (
+    DiffAnnotate,
+    EmptyRequest,
+    Regenerate,
+    Update,
+)
 from genjax_torch.gfi.selection import Selection
 from genjax_torch.lang.distributions import *  # noqa: F401,F403
 from genjax_torch.lang.distributions import __all__ as _dist_all
@@ -49,8 +57,20 @@ from genjax_torch.lang.static import (
     AddressReuse,
     Fn,
     MissingAddress,
+    StaticRequest,
     StaticTrace,
     gen,
+)
+from genjax_torch.lang.combinators import (
+    Scan,
+    Vmap,
+    accumulate,
+    iterate,
+    iterate_final,
+    reduce,
+    repeat,
+    scan,
+    vmap,
 )
 from genjax_torch.core import random  # noqa: E402
 from genjax_torch import inference, ops  # noqa: E402,F401
@@ -70,11 +90,14 @@ __all__ = [
     "Closure",
     "Const",
     "Diff",
+    "DiffAnnotate",
     "EditRequest",
+    "EmptyRequest",
     "FlagOp",
     "Fn",
     "GenerativeFunction",
     "GenerativeFunctionClosure",
+    "IndexRequest",
     "Mask",
     "MissingAddress",
     "NoChange",
@@ -84,19 +107,29 @@ __all__ = [
     "Regenerate",
     "Retdiff",
     "S",
+    "Scan",
     "Score",
     "Selection",
+    "StaticRequest",
     "StaticTrace",
     "Trace",
     "UnknownChange",
     "Update",
+    "Vmap",
     "Weight",
+    "accumulate",
     "empty_trace",
     "gen",
     "inference",
+    "iterate",
+    "iterate_final",
     "multi_switch",
     "ops",
     "random",
+    "reduce",
+    "repeat",
+    "scan",
     "tree_choose",
+    "vmap",
     *_dist_all,
 ]

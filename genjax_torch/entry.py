@@ -15,7 +15,13 @@
   ``benchmarks/run_all.py::config3_hmm_smc``);
 - :func:`build_hmm_parallel`: the exact posterior of a discrete HMM
   through the parallel-prefix filter and the parallel backward sampler
-  (``DiscreteHMM(use_parallel_filter=True)``).
+  (``DiscreteHMM(use_parallel_filter=True)``);
+- :func:`build_tempered_smc`: bench config 6, tempered SMC with MH
+  rejuvenation through ``Regenerate`` edits on a conjugate Gaussian
+  model, with the closed-form log Z (counterpart of
+  ``benchmarks/run_all.py::config6_tempered``);
+- :func:`build_hmm_model`: the ``Scan``-combinator HMM ``hmm_model`` on
+  config 3's circulant configuration, its observations constrained.
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (or another device); without a card it raises rather
@@ -37,11 +43,12 @@ from genjax_torch.core import random
 from genjax_torch.inference import ImportanceK, Target
 from genjax_torch.inference.exact_testbed import sample_problem
 from genjax_torch.inference.pf import fused_particle_filter, particle_filter
+from genjax_torch.inference.smc_sampler import tempered_smc
 from genjax_torch.lang.distributions.discrete_hmm import (
     DiscreteHMM,
     DiscreteHMMConfiguration,
 )
-from genjax_torch.models.hmm import hmm_bootstrap_filter
+from genjax_torch.models.hmm import hmm_bootstrap_filter, hmm_model
 from genjax_torch.ops.fused_step import CudaModel
 
 __all__ = [
@@ -61,6 +68,11 @@ __all__ = [
     "build_linear_fused",
     "build_hmm_smc",
     "build_hmm_parallel",
+    "tempered_model",
+    "tempered_observations",
+    "tempered_exact_log_z",
+    "build_tempered_smc",
+    "build_hmm_model",
 ]
 
 
@@ -278,3 +290,75 @@ def build_hmm_parallel(n_states: int, n_steps: int, device=None):
         return z, score, problem.log_data_marginal
 
     return run, problem
+
+
+#: Config 6's observation noise sd and prior sd of the mean.
+TEMPERED_SIGMA, TEMPERED_PRIOR_SD = 0.8, 3.0
+
+
+def tempered_model(n_obs: int):
+    """Config 6's model: ``mu ~ normal(0, 3)``, ``ys ~ mv_normal_diag(mu,
+    sigma)`` over ``n_obs`` points. Under a key batch ``mu`` and a lifted
+    ``sigma`` have the batch's shape, so each gains the event axis
+    behind it."""
+
+    @g.gen
+    def model(sigma):
+        mu = g.normal(0.0, TEMPERED_PRIOR_SD) @ "mu"
+        ones = torch.ones(n_obs, device=mu.device)
+        sigma = torch.as_tensor(sigma, device=mu.device)
+        _ = g.mv_normal_diag(mu[..., None] * ones,
+                             sigma[..., None] * ones) @ "ys"
+
+    return model
+
+
+def tempered_observations(n_obs: int = 64, device=None) -> torch.Tensor:
+    """Config 6's data: ``1.5 + 0.7 · normal(key(0), (n_obs,))``."""
+    return 1.5 + 0.7 * random.normal(random.key(0, device=_device(device)),
+                                     (n_obs,))
+
+
+def tempered_exact_log_z(ys, sigma: float = TEMPERED_SIGMA) -> float:
+    """The conjugate closed form of config 6's log Z: ``ys | mu ~ N(mu,
+    sigma² I)``, ``mu ~ N(0, 9)``."""
+    y = np.asarray(torch.as_tensor(ys).cpu(), np.float64)
+    s2, t2, n = sigma ** 2, TEMPERED_PRIOR_SD ** 2, float(y.size)
+    post_var = 1.0 / (1.0 / t2 + n / s2)
+    return float(-0.5 * n * np.log(2 * np.pi * s2) - 0.5 * (y ** 2).sum() / s2
+                 + 0.5 * post_var * (y.sum() / s2) ** 2
+                 + 0.5 * np.log(post_var / t2))
+
+
+def build_tempered_smc(n_particles: int = 2 ** 19, n_temps: int = 16,
+                       n_moves: int = 2, n_obs: int = 64, device=None):
+    """Bench config 6: tempered SMC (adaptive systematic resampling, MH
+    rejuvenation by ``Regenerate`` of ``mu``) on :func:`tempered_model`
+    with ``sigma = 0.8`` and :func:`tempered_observations`. Returns
+    ``(run, exact_log_z)``: ``run(key) -> TemperedSMCResult`` and the
+    closed-form log Z."""
+    ys = tempered_observations(n_obs, device)
+    target = Target(tempered_model(n_obs), (TEMPERED_SIGMA,),
+                    g.C["ys"].set(ys))
+    run = tempered_smc(target, n_particles, n_temps=n_temps, n_moves=n_moves)
+    return run, tempered_exact_log_z(ys)
+
+
+def build_hmm_model(n_states: int = 64, n_steps: int = 64,
+                    n_particles: int = 2 ** 19, device=None):
+    """``hmm_model`` on config 3's problem (``circulant(S, S)``, a path
+    from ``sample_problem(key(3), ...)``) with its observations
+    constrained at ``"x0"`` and ``("chain", t, "x")``. Returns
+    ``(generate, model, constraint, problem)``: ``generate(key) ->
+    (trace, weight)`` importance-samples ``n_particles`` paths on
+    ``split(key, n_particles)``."""
+    problem = _hmm_problem(n_states, n_steps, _device(device))
+    model = hmm_model(problem.config, n_steps)
+    obs = problem.observations
+    constraint = (g.C["x0"].set(obs[0])
+                  | g.C["chain", :, "x"].set(obs[1:]))
+
+    def generate(key):
+        return model.generate(random.split(key, n_particles), constraint, ())
+
+    return generate, model, constraint, problem

@@ -5,8 +5,9 @@ algebra closed under filter / merge / mask / extend / switch
 Every tensor is concrete in eager PyTorch, so a dynamic-index lookup on
 an :class:`Indexed` node with a Python-int address folds to a plain
 slice; a tensor address lowers to ``argmax`` + gather + mask as in JAX.
-``lanes_leading`` and ``partition_values`` serve ``vmap`` and the
-gradient samplers and are not ported yet.
+Under a key batch the lane axis of an :class:`Indexed` node sits behind
+the batch axes, at the node's ``batch_rank``. ``lanes_leading`` and
+``partition_values`` serve the gradient samplers and are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ __all__ = [
     "ChoiceMapNoValueAtAddress",
     "ChmSel",
     "C",
+    "Indexed",
+    "lift_values",
 ]
 
 
@@ -336,35 +339,90 @@ class Static(ChoiceMap):
         return dict(zip(self.keys, self.submaps))
 
 
-def _lane_slice(tree, pos, n: int):
-    """Index the lane axis of every leaf that has it (leading length
-    ``n``); other leaves pass through."""
+def _lane_slice(tree, pos, batch_rank: int):
+    """Index the lane axis of every leaf: the axis right after the
+    ``batch_rank`` leading batch axes. ``pos`` is an int, a slice, a 0-d
+    index (one lane for every execution), a tensor of the batch's shape
+    (one lane per execution) or, unbatched, a vector of lanes. A leaf of
+    rank ``batch_rank`` or less has no lane axis and passes through."""
+    lead = (slice(None),) * batch_rank
 
     def pick(v):
-        if isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[0] == n:
-            return v[pos]
-        return v
+        if not isinstance(v, torch.Tensor) or v.ndim <= batch_rank:
+            return v
+        if isinstance(pos, torch.Tensor) and batch_rank and pos.ndim:
+            p = pos.to(device=v.device, dtype=torch.int64)
+            p = p.reshape(tuple(p.shape) + (1,) * (v.ndim - batch_rank))
+            p = p.expand(tuple(v.shape[:batch_rank]) + (1,)
+                         + tuple(v.shape[batch_rank + 1:]))
+            return torch.take_along_dim(v, p, dim=batch_rank).squeeze(
+                batch_rank)
+        if isinstance(pos, torch.Tensor):
+            return v[lead + (pos.to(v.device),)]
+        return v[lead + (pos,)]
 
     return tree_map(pick, tree)
 
 
+def lift_values(chm: "ChoiceMap", batch: tuple, device=None) -> "ChoiceMap":
+    """``chm`` with every value given the leading batch axes ``batch`` as
+    a zero-stride view (``expand``, no copy): a caller's constraint made
+    the same for every execution of a batched run. A Python value becomes
+    a tensor on ``device``. Lane nodes (:class:`Indexed`) record the batch
+    rank they gain."""
+    if not batch:
+        return chm
+
+    def lift(v):
+        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+            v, device=device)
+        return t.expand(tuple(batch) + tuple(t.shape))
+
+    def go(c):
+        if isinstance(c, Choice):
+            v = c.v
+            if isinstance(v, Mask):
+                return Choice(Mask(tree_map(lift, v.value), v.flag))
+            return Choice(tree_map(lift, v))
+        if isinstance(c, Static):
+            return Static(tuple(go(sub) for sub in c.submaps), c.keys)
+        if isinstance(c, Indexed):
+            return Indexed(go(c.inner), c.idx, c.n,
+                           c.batch_rank + len(batch))
+        if isinstance(c, Or):
+            return Or(go(c.left), go(c.right))
+        if isinstance(c, Filtered):
+            return Filtered(go(c.inner), c.selection)
+        if isinstance(c, Switch):
+            return Switch(c.idx, tuple(go(b) for b in c.branches))
+        return c
+
+    return go(chm)
+
+
 @Pytree.dataclass
 class Indexed(ChoiceMap):
-    """Dynamic-index node: ``inner`` has a leading lane axis and ``idx``
-    holds each lane's address; ``idx=None`` means lane ``i`` is addressed
-    by ``i``."""
+    """Dynamic-index node: every leaf of ``inner`` has ``batch_rank``
+    leading batch axes and then the lane axis; ``idx`` holds each lane's
+    address, and ``idx=None`` means lane ``i`` is addressed by ``i``. The
+    lane axis is found by its position, never by its length."""
 
     inner: ChoiceMap
     idx: Any = None
     n: Any = Pytree.static(default=None)
+    batch_rank: int = Pytree.static(default=0)
+
+    def _lane_leaf(self):
+        for leaf in tree_leaves(self.inner):
+            if isinstance(leaf, torch.Tensor) and leaf.ndim > self.batch_rank:
+                return leaf
+        return None
 
     def _n(self) -> int:
         if self.n is not None:
             return self.n
-        for leaf in tree_leaves(self.inner):
-            if isinstance(leaf, torch.Tensor) and leaf.ndim >= 1:
-                return leaf.shape[0]
-        return 0
+        leaf = self._lane_leaf()
+        return 0 if leaf is None else leaf.shape[self.batch_rank]
 
     def _get_idx(self) -> torch.Tensor:
         if self.idx is None:
@@ -378,10 +436,9 @@ class Indexed(ChoiceMap):
         if self.n == 0:
             return True
         if self.n is None and self.idx is None:
-            for leaf in tree_leaves(self.inner):
-                if isinstance(leaf, torch.Tensor) and leaf.ndim >= 1:
-                    return leaf.shape[0] == 0
-        elif self.idx is not None and _t(self.idx).ndim >= 1:
+            leaf = self._lane_leaf()
+            return leaf is not None and leaf.shape[self.batch_rank] == 0
+        if self.idx is not None and _t(self.idx).ndim >= 1:
             return _t(self.idx).shape[0] == 0
         return False
 
@@ -391,40 +448,49 @@ class Indexed(ChoiceMap):
         if self.static_is_empty():
             return Empty()
         idx = self._get_idx()
-        n = idx.shape[0] if idx.ndim else 0
+        r = self.batch_rank
         if isinstance(comp, int) and idx.ndim == 1:
             hits = torch.nonzero(idx.cpu() == comp).flatten()
             if len(hits) == 0:
                 return Empty()
-            return _lane_slice(self.inner, int(hits[0]), n)
+            return _lane_slice(self.inner, int(hits[0]), r)
         if isinstance(comp, slice):
             if idx.ndim == 0:
                 return self
             if comp == slice(None) and self.idx is None:
                 return self.inner
-            return Indexed(_lane_slice(self.inner, comp, n), idx[comp])
+            return Indexed(_lane_slice(self.inner, comp, r), idx[comp],
+                           batch_rank=r)
         comp = _t(comp)
         idx = idx.to(comp.device)
         if idx.ndim == 0:
             return self.inner.mask(comp == idx)
+        if comp.ndim > 0 and r:
+            # One lane per execution: comp has the batch's shape.
+            eq = comp[..., None] == idx
+            pos = torch.argmax(eq.to(torch.int32), dim=-1)
+            return _lane_slice(self.inner, pos, r).mask(eq.any(dim=-1))
         if comp.ndim > 0:
             eq = idx[None, :] == comp[:, None]
             pos = torch.argmax(eq.to(torch.int32), dim=1)
             found = eq.any(dim=1)
-            return _lane_slice(self.inner, pos, n).mask(found)
+            return _lane_slice(self.inner, pos, r).mask(found)
         eq = idx == comp
         pos = torch.argmax(eq.to(torch.int32))
         found = eq.any()
-        return _lane_slice(self.inner, pos, n).mask(found)
+        return _lane_slice(self.inner, pos, r).mask(found)
 
     def filter(self, selection) -> ChoiceMap:
         if not isinstance(selection, Selection):
             selection = AllSel().mask(_check_flag(selection, "filter"))
-        sub = selection.get_subselection(self._get_idx())
+        idx = self._get_idx()
+        # The lanes' flags sit behind the batch axes, as the lanes do.
+        sub = selection.get_subselection(
+            idx.reshape((1,) * self.batch_rank + tuple(idx.shape)))
         filtered = self.inner.filter(sub)
         if filtered.static_is_empty():
             return Empty()
-        return Indexed(filtered, self.idx, self.n)
+        return Indexed(filtered, self.idx, self.n, self.batch_rank)
 
 
 @Pytree.dataclass

@@ -31,6 +31,7 @@ __all__ = [
     "Retdiff",
     "EditRequest",
     "PrimitiveEditRequest",
+    "IndexRequest",
     "NotSupportedEditRequest",
 ]
 
@@ -55,9 +56,30 @@ class EditRequest(Pytree):
     def edit(self, key: torch.Tensor, tr: "Trace", argdiffs: Argdiffs):
         ...
 
+    def dimap(self, *, pre, post) -> "EditRequest":
+        from genjax_torch.gfi.requests import DiffAnnotate
+
+        return DiffAnnotate(self, pre, post)
+
+    def map(self, post) -> "EditRequest":
+        return self.dimap(pre=lambda d: d, post=post)
+
+    def contramap(self, pre) -> "EditRequest":
+        return self.dimap(pre=pre, post=lambda d: d)
+
 
 class PrimitiveEditRequest(EditRequest):
     """An edit request served by the trace's own generative function."""
 
     def edit(self, key, tr, argdiffs):
         return tr.get_gen_fn().edit(key, tr, self, argdiffs)
+
+
+@Pytree.dataclass
+class IndexRequest(PrimitiveEditRequest):
+    """Apply a sub-request at one index of a vectorized generative
+    function (a Vmap lane or a Scan step). ``idx`` is an int or a 0-d
+    tensor: the same lane in every execution of a batch."""
+
+    idx: Any
+    subrequest: EditRequest

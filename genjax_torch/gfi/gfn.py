@@ -1,8 +1,10 @@
 """The generative function interface: ``Trace`` and ``GenerativeFunction``
-(counterpart of ``genjax_tpu/gfi/gfn.py``). The combinator postfix
-methods (``vmap``, ``scan``, ``switch``, ...) and ``marginal`` are not
-ported yet.
-"""
+(counterpart of ``genjax_tpu/gfi/gfn.py``), with the postfix methods of
+the ported combinators (``vmap``, ``repeat``, ``scan``, ``accumulate``,
+``reduce``, ``iterate``, ``iterate_final``, ``masked_iterate``, ``mask``,
+``dimap``, ``map``, ``contramap``). The others (``switch``, ``mix``,
+``or_else``, ``marginal``) raise, naming the ROADMAP item that ports
+them."""
 
 from __future__ import annotations
 
@@ -78,16 +80,46 @@ class GenerativeFunction(Pytree, Generic[R]):
     ``edit``.
 
     A key of shape ``B + (2,)`` runs ``B`` independent executions at once
-    (the particle axis written out, see ``core/random.py``): every
-    tensor of the trace then leads with ``B``."""
+    (the particle axis written out, see ``core/random.py``). The batch
+    rank is always the key's, ``key.ndim - 1`` (``assess``, which takes
+    no key, is told ``batch``); no code reads it from a length that
+    happens to match. The convention:
+
+    - every draw, score and weight has the batch ``B`` as its leading
+      axes (a score or weight has exactly the shape ``B``);
+    - every tensor argument of a batched call leads with ``B``: it is
+      per-execution data, whatever its length. A Python number is the
+      same in every execution. The inference entry points
+      (``ImportanceK``, ``tempered_smc``, ...) lift the target's
+      arguments and constraint values to the batch with ``expand``, a
+      zero-stride view with no copy; a direct caller lifts its own.
+      Combinators (``Vmap``, ``Scan``) refuse a tensor argument that
+      does not lead with ``B``;
+    - inside a ``@gen`` body the handler tells per-execution tensors
+      (derived by torch operations from the arguments and the traced
+      calls' return values) from the body's constants, and expands each
+      constant to ``B`` before it reaches a traced call or the return
+      value (``lang/static.py``). So every tensor a trace holds leads
+      with ``B``, and a leaf that is the same in every execution is
+      recognisable by its zero stride (the invariant leaves that
+      resampling and the MH select skip);
+    - a combinator puts its lane or step axis right after ``B``: keys
+      ``B + (n, 2)``, traces ``B + (n,) + ...``, and the ``Indexed``
+      choice maps it builds record ``batch_rank = len(B)``.
+
+    Distributions alone are lenient: a parameter that does not lead with
+    ``B`` broadcasts from the right against ``B + event``, shared by
+    every execution."""
 
     @abc.abstractmethod
     def simulate(self, key, args: tuple) -> Trace[R]:
         """Sample a trace: choices ~ P(·; args)."""
 
     @abc.abstractmethod
-    def assess(self, chm: ChoiceMap, args: tuple):
-        """Score a complete choice map: ``(log P(chm; args), retval)``."""
+    def assess(self, chm: ChoiceMap, args: tuple, batch: tuple = ()):
+        """Score a complete choice map: ``(log P(chm; args), retval)``.
+        ``assess`` takes no key, so a batched call names its batch shape
+        ``batch``: the score then has that shape."""
 
     @abc.abstractmethod
     def generate(self, key, constraint: ChoiceMap, args: tuple):
@@ -124,15 +156,119 @@ class GenerativeFunction(Pytree, Generic[R]):
 
         return empty_trace(self, args)
 
-    def __call__(self, *args) -> "GenerativeFunctionClosure[R]":
-        return GenerativeFunctionClosure(self, args)
+    def __call__(self, *args, **kwargs) -> "GenerativeFunctionClosure[R]":
+        """``gf(args)``; ``sample_shape=`` makes an iid block of a
+        distribution (``normal(0., 1., sample_shape=(2, 3))``), and other
+        keyword arguments go to a ``@gen`` function's ``handle_kwargs``
+        form."""
+        from genjax_torch.core.pytree import Const
+
+        shape = Const.unwrap(kwargs.pop("sample_shape", None))
+        gf = self
+        if shape is not None:
+            if not hasattr(self, "iid"):
+                raise TypeError(f"{self!r} takes no sample_shape")
+            gf = self.iid(shape)
+        if kwargs:
+            if not hasattr(gf, "handle_kwargs"):
+                raise NotImplementedError(
+                    f"named arguments {sorted(kwargs)} of {gf!r} are not "
+                    "ported yet")
+            return GenerativeFunctionClosure(gf.handle_kwargs(),
+                                             (args, kwargs))
+        return GenerativeFunctionClosure(gf, args)
+
+    # -- combinator postfix methods ---------------------------------------
+
+    def vmap(self, *, in_axes=0, axis_size=None):
+        from genjax_torch.lang.combinators.vmap import Vmap
+
+        return Vmap(self, in_axes=in_axes, axis_size=axis_size)
+
+    def repeat(self, *, n: int):
+        from genjax_torch.lang.combinators.repeat import repeat
+
+        return repeat(n=n)(self)
+
+    def scan(self, *, n: int | None = None):
+        from genjax_torch.lang.combinators.scan import Scan
+
+        return Scan(self, length=n)
+
+    def accumulate(self):
+        from genjax_torch.lang.combinators.scan import accumulate
+
+        return accumulate()(self)
+
+    def reduce(self):
+        from genjax_torch.lang.combinators.scan import reduce
+
+        return reduce()(self)
+
+    def iterate(self, *, n: int):
+        from genjax_torch.lang.combinators.scan import iterate
+
+        return iterate(n=n)(self)
+
+    def iterate_final(self, *, n: int):
+        from genjax_torch.lang.combinators.scan import iterate_final
+
+        return iterate_final(n=n)(self)
+
+    def masked_iterate(self):
+        from genjax_torch.lang.combinators.scan import masked_iterate
+
+        return masked_iterate()(self)
+
+    def masked_iterate_final(self):
+        from genjax_torch.lang.combinators.scan import masked_iterate_final
+
+        return masked_iterate_final()(self)
+
+    def mask(self):
+        from genjax_torch.lang.combinators.mask import MaskCombinator
+
+        return MaskCombinator(self)
+
+    def dimap(self, *, pre=None, post=None):
+        from genjax_torch.lang.combinators.dimap import dimap
+
+        return dimap(pre=pre, post=post)(self)
+
+    def map(self, post):
+        from genjax_torch.lang.combinators.dimap import map_retval
+
+        return map_retval(post)(self)
+
+    def contramap(self, pre):
+        from genjax_torch.lang.combinators.dimap import contramap
+
+        return contramap(pre)(self)
+
+    def _not_ported(self, method: str):
+        raise NotImplementedError(
+            f"GenerativeFunction.{method} is not ported yet: its combinator "
+            "comes with ROADMAP queue 1 item 8 (Switch, mix, or_else)")
+
+    def switch(self, *branches):
+        self._not_ported("switch")
+
+    def mix(self, *fns):
+        self._not_ported("mix")
+
+    def or_else(self, gen_fn):
+        self._not_ported("or_else")
+
+    def marginal(self, *, selection=None, algorithm=None):
+        raise NotImplementedError(
+            "GenerativeFunction.marginal is not ported yet: build "
+            "inference.Marginal directly")
 
 
 @Pytree.dataclass
 class GenerativeFunctionClosure(Pytree, Generic[R]):
     """``gf(args)``: a gen fn partially applied to arguments. Inside a
-    ``@gen`` body, ``closure @ "addr"`` records a traced call. (Keyword
-    arguments are not ported yet.)"""
+    ``@gen`` body, ``closure @ "addr"`` records a traced call."""
 
     gen_fn: GenerativeFunction[R]
     args: tuple
@@ -145,8 +281,8 @@ class GenerativeFunctionClosure(Pytree, Generic[R]):
     def simulate(self, key):
         return self.gen_fn.simulate(key, self.args)
 
-    def assess(self, chm):
-        return self.gen_fn.assess(chm, self.args)
+    def assess(self, chm, batch: tuple = ()):
+        return self.gen_fn.assess(chm, self.args, batch=batch)
 
     def generate(self, key, constraint):
         return self.gen_fn.generate(key, constraint, self.args)

@@ -4,9 +4,11 @@ sampling (SIR) and systematic resampling (counterpart of
 
 The particle axis is written out: ``ImportanceK`` runs the target's
 ``importance`` once on a batch of ``K`` keys (``core/random.py``) rather
-than under ``vmap``. Systematic resampling goes through the CDF->counts
-kernel (``ops/cdf_counts.py``) for a CUDA tensor and expands with
-``repeat_interleave``, the JAX package's own CPU path.
+than under ``vmap``, the target's arguments and constraint values lifted
+to the batch first (``batched_importance``). Systematic resampling goes
+through the CDF->counts kernel (``ops/cdf_counts.py``) for a CUDA tensor
+and expands with ``repeat_interleave``, the JAX package's own CPU path;
+a leaf marked invariant (the same in every particle) is not moved.
 
 Not ported yet: ``ChangeTarget``, so the GenSP / VI methods of
 ``SMCAlgorithm``, and ``resample_values(_rows)``.
@@ -20,8 +22,13 @@ import math
 import torch
 
 from genjax_torch.core import random
-from genjax_torch.core.pytree import Pytree, tree_map
-from genjax_torch.gfi.choice_map import ChoiceMap
+from genjax_torch.core.pytree import (
+    Pytree,
+    tree_flatten,
+    tree_map,
+    tree_unflatten,
+)
+from genjax_torch.gfi.choice_map import ChoiceMap, lift_values
 from genjax_torch.gfi.gfn import Trace
 from genjax_torch.inference.sp import Algorithm, Target
 from genjax_torch.ops.cdf_counts import systematic_cumulative
@@ -36,6 +43,8 @@ __all__ = [
     "ImportanceK",
     "effective_sample_size",
     "resample_indices",
+    "batched_importance",
+    "invariant_leaf_mask",
 ]
 
 
@@ -98,13 +107,27 @@ def resample_indices(key, log_weights: torch.Tensor, n: int,
 
 
 def resample_tree(key, log_weights: torch.Tensor, tree, n: int,
-                  method: str = "systematic"):
+                  method: str = "systematic", invariant=None):
     """Resample every leaf of ``tree`` (leading axis = particles).
 
     Systematic: offspring counts, then ``repeat_interleave`` with a fixed
     ``output_size`` (no host sync). Others: ancestor indices and a
-    gather. (The JAX package's ``invariant`` leaf mask is not ported: no
-    caller of the slice passes one.)"""
+    gather. ``invariant``: a pytree of bools matching ``tree``'s leaves,
+    True for a leaf that is the same in every particle
+    (:func:`invariant_leaf_mask`); such a leaf is returned untouched, cut
+    or broadcast to ``n`` rows as a view, so the mask changes only the
+    cost, never the result."""
+    if invariant is not None:
+        leaves, spec = tree_flatten(tree)
+        inv = tree_flatten(invariant)[0]
+        if len(inv) != len(leaves):
+            raise ValueError("invariant mask and tree differ in their leaves")
+        moved = iter(resample_tree(
+            key, log_weights, [v for v, i in zip(leaves, inv) if not i], n,
+            method))
+        return tree_unflatten(
+            [_rows(v, n) if i else next(moved) for v, i in zip(leaves, inv)],
+            spec)
     if method == "systematic":
         counts = systematic_offspring_counts(key, log_weights, n)
         return tree_map(
@@ -116,18 +139,63 @@ def resample_tree(key, log_weights: torch.Tensor, tree, n: int,
     return tree_map(lambda v: v[idx], tree)
 
 
+def _rows(v: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` rows of a leaf whose rows are all equal, as a view."""
+    if v.shape[0] >= n:
+        return v[:n]
+    return v[:1].expand((n,) + tuple(v.shape[1:]))
+
+
+def invariant_leaf_mask(tree):
+    """True for each leaf that is the same in every particle by
+    construction: a zero-stride expansion along the particle axis, as the
+    lifted arguments and constraint values of a batched run are (the
+    counterpart of the JAX package's ``variant_leaf_mask``, which finds
+    them by taint analysis)."""
+    return tree_map(
+        lambda v: isinstance(v, torch.Tensor) and v.ndim >= 1
+        and v.shape[0] > 1 and v.stride(0) == 0, tree)
+
+
+def _lift_to(v, k: int, device):
+    t = v if isinstance(v, torch.Tensor) else torch.as_tensor(v,
+                                                              device=device)
+    return t.expand((k,) + tuple(t.shape))
+
+
 def _particle_leaves(tree, k: int, device):
-    """Give every leaf the leading particle axis: a leaf that the keys'
-    batch did not reach (a constraint value, a constant) is broadcast."""
+    """Every leaf of a ``k``-particle trace with the leading particle
+    axis. A tensor carries it already (every tensor of a batched trace
+    leads with the batch, ``gfi/gfn.py``); a Python number, the same in
+    every particle, is expanded to a zero-stride view. No leaf is judged
+    by its length."""
 
     def lift(v):
-        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(
-            v, device=device)
-        if t.ndim >= 1 and t.shape[0] == k:
-            return t
-        return t.unsqueeze(0).expand((k,) + tuple(t.shape))
+        if isinstance(v, torch.Tensor):
+            if v.ndim == 0 or v.shape[0] != k:
+                raise ValueError(
+                    f"a tensor of shape {tuple(v.shape)} in a {k}-particle "
+                    "trace: every tensor of a batched trace leads with the "
+                    "batch")
+            return v
+        return _lift_to(v, k, device)
 
     return tree_map(lift, tree)
+
+
+def batched_importance(target: Target, keys, chm: ChoiceMap):
+    """``target.importance`` on a batch of ``K`` keys ``(K, 2)``: the
+    target's arguments and constraint values (and ``chm``'s) are lifted
+    to the ``K`` particles as zero-stride views, and every leaf of the
+    traces has the particle axis (:func:`_particle_leaves`). Returns
+    ``(traces, weights)``."""
+    k = keys.shape[0]
+    args = tree_map(lambda v: _lift_to(v, k, keys.device)
+                    if isinstance(v, torch.Tensor) else v, target.args)
+    constraint = lift_values(target.constraint | chm, (k,), keys.device)
+    trs, ws = target.p.generate(keys, constraint, args)
+    return (_particle_leaves(trs, k, keys.device),
+            torch.as_tensor(ws, device=keys.device).expand(k))
 
 
 def _one_particle(tree, device):
@@ -285,10 +353,7 @@ class ImportanceK(SMCAlgorithm):
         return self.target
 
     def _batched_importance(self, keys, choices):
-        trs, ws = self.get_final_target().importance(keys, choices)
-        k = keys.shape[0]
-        return (_particle_leaves(trs, k, keys.device),
-                torch.as_tensor(ws, device=keys.device).expand(k))
+        return batched_importance(self.get_final_target(), keys, choices)
 
     def run_smc(self, key) -> ParticleCollection:
         _, sub_key = random.split(key).unbind(-2)

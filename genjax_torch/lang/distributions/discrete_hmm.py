@@ -210,10 +210,36 @@ def log_data_marginal(config: DiscreteHMMConfiguration,
     return logm
 
 
+def _one_copy(v, rank: int) -> torch.Tensor:
+    """``v`` at its per-execution rank ``rank``: leading batch axes must
+    be zero-stride (the same in every execution) and are dropped."""
+    v = torch.as_tensor(v)
+    extra = v.ndim - rank
+    if extra <= 0:
+        return v
+    if any(v.stride(i) != 0 and v.shape[i] != 1 for i in range(extra)):
+        raise NotImplementedError(
+            "DiscreteHMM with per-execution parameters is not ported: its "
+            "filter runs once for the whole batch")
+    return v[(0,) * extra]
+
+
+def _shared_params(config: DiscreteHMMConfiguration, observations):
+    """The parameters as one execution sees them. They are shared by the
+    batch; a ``@gen`` body hands them over lifted to it as zero-stride
+    views, which their known ranks take back to one copy."""
+    return (DiscreteHMMConfiguration(
+        _one_copy(config.prior_logits, 1),
+        _one_copy(config.transition_logits, 2),
+        _one_copy(config.observation_logits, 2)),
+        _one_copy(observations, 1))
+
+
 @Pytree.dataclass
 class DiscreteHMM(Distribution):
     """The exact latent-sequence posterior of a discrete HMM as a
-    Distribution over paths: args = (config, observations)."""
+    Distribution over paths: args = (config, observations), shared by
+    every execution of a key batch."""
 
     use_parallel_filter: bool = Pytree.static(default=False)
 
@@ -223,6 +249,7 @@ class DiscreteHMM(Distribution):
         return forward_filter(config, observations)
 
     def random_weighted(self, key, config, observations):
+        config, observations = _shared_params(config, observations)
         alphas, logm = self._filter(config, observations)
         if self.use_parallel_filter:
             z = backward_sample_parallel(key, config, alphas)
@@ -232,6 +259,7 @@ class DiscreteHMM(Distribution):
         return score, z
 
     def estimate_logpdf(self, key, z, config, observations):
+        config, observations = _shared_params(config, observations)
         _, logm = self._filter(config, observations)
         return joint_logpdf(config, z, observations) - logm
 

@@ -3,10 +3,12 @@
 (counterpart of ``genjax_tpu/lang/distributions/distribution.py``).
 
 A key of shape ``B + (2,)`` draws ``B`` independent choices at once; a
-log-density is summed over the event dimensions only, never over ``B``.
-Not ported yet: ``edit`` (it raises), named parameters
-(``normal(loc=..., scale=...)``) and the ``iid`` block
-(``sample_shape=``).
+log-density is summed over the event dimensions only, never over ``B``,
+and a score or weight has exactly the shape ``B``. ``edit`` serves
+``Update`` and ``Regenerate`` with the JAX package's key use: the
+concrete paths hand the key to ``random_weighted`` / ``estimate_logpdf``
+as it is, a tensor flag splits it into sample and estimate keys. Not
+ported yet: named parameters (``normal(loc=..., scale=...)``).
 """
 
 from __future__ import annotations
@@ -17,18 +19,21 @@ from typing import Any, Callable
 import torch
 
 from genjax_torch.core import random
+from genjax_torch.core.compiler.interpreters.incremental import Diff
 from genjax_torch.core.compiler.staging import FlagOp, tree_where
 from genjax_torch.core.pytree import Pytree
 from genjax_torch.gfi.choice_map import ChoiceMap
 from genjax_torch.gfi.concepts import Argdiffs, EditRequest, Score
 from genjax_torch.gfi.gfn import GenerativeFunction, Trace
 from genjax_torch.gfi.mask import Mask
+from genjax_torch.gfi.requests import Regenerate, Update
 from genjax_torch.gfi.selection import Selection
 
 __all__ = [
     "Distribution",
     "DistributionTrace",
     "ExactDensity",
+    "IIDBlock",
     "exact_density",
 ]
 
@@ -40,6 +45,12 @@ def _batch(key: torch.Tensor) -> tuple:
 def _zeros(key: torch.Tensor) -> torch.Tensor:
     """A zero weight per key of the batch."""
     return torch.zeros(_batch(key), dtype=torch.float32, device=key.device)
+
+
+def _select(flag, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``where(flag, a, b)`` for a weight: the flag has the batch's shape
+    (or broadcasts against it)."""
+    return torch.where(torch.as_tensor(flag, device=a.device), a, b)
 
 
 @Pytree.dataclass
@@ -94,7 +105,7 @@ class Distribution(GenerativeFunction[Any]):
         score, v = self.random_weighted(key, *args)
         return DistributionTrace(self, args, v, score)
 
-    def assess(self, chm: ChoiceMap, args: tuple):
+    def assess(self, chm: ChoiceMap, args: tuple, batch: tuple = ()):
         v = self._constraint_value(chm)
         if v is None:
             raise ValueError(
@@ -102,8 +113,10 @@ class Distribution(GenerativeFunction[Any]):
             )
         if isinstance(v, Mask):
             v = v.value
-        # assess is keyless: exact densities ignore the key entirely.
-        score = self.estimate_logpdf(random.key(0), v, *args)
+        # assess is keyless: exact densities ignore the key entirely, and
+        # a fixed key of the batch's shape says which axes are the batch.
+        key = random.key(0).expand(tuple(batch) + (2,))
+        score = self.estimate_logpdf(key, v, *args)
         return score, v
 
     def generate(self, key, constraint: ChoiceMap, args: tuple):
@@ -139,10 +152,82 @@ class Distribution(GenerativeFunction[Any]):
 
     def edit(self, key, trace: DistributionTrace, request: EditRequest,
              argdiffs: Argdiffs):
+        args = Diff.tree_primal(argdiffs)
+        no_change = Diff.static_check_no_change(argdiffs)
+        if isinstance(request, Update):
+            return self._edit_update(key, trace, request.constraint, args,
+                                     no_change)
+        if isinstance(request, Regenerate):
+            return self._edit_regenerate(key, trace, request.selection, args,
+                                         no_change)
         raise NotImplementedError(
-            "Distribution.edit is not ported yet: edits come with ROADMAP "
-            "queue 1 item 8, 'Combinators and edits'."
+            f"{type(self).__name__} does not support "
+            f"{type(request).__name__}"
         )
+
+    def _edit_update(self, key, trace, constraint: ChoiceMap, args,
+                     args_unchanged: bool):
+        """SMCP3 update arithmetic: a constrained value is rescored and
+        the old one discarded; an unconstrained one is kept and rescored
+        only when the arguments changed. A tensor ``Mask`` flag selects
+        per execution."""
+        old_v = trace.get_retval()
+        old_score = trace.get_score()
+        cv = self._constraint_value(constraint)
+
+        if cv is None:
+            if args_unchanged:
+                return (trace, _zeros(key), Diff.no_change(old_v),
+                        Update(ChoiceMap.empty()))
+            new_score = self.estimate_logpdf(key, old_v, *args)
+            new_tr = DistributionTrace(self, args, old_v, new_score)
+            return (new_tr, new_score - old_score, Diff.no_change(old_v),
+                    Update(ChoiceMap.empty()))
+
+        if isinstance(cv, Mask):
+            flag = cv.primal_flag()
+            if FlagOp.concrete_true(flag):
+                cv = cv.value
+            elif FlagOp.concrete_false(flag):
+                return self._edit_update(key, trace, ChoiceMap.empty(), args,
+                                         args_unchanged)
+            else:
+                v = tree_where(flag, cv.value, old_v)
+                new_score = self.estimate_logpdf(key, v, *args)
+                new_tr = DistributionTrace(self, args, v, new_score)
+                discard = ChoiceMap.choice(Mask.build(old_v, flag))
+                return (new_tr, new_score - old_score, Diff.unknown_change(v),
+                        Update(discard))
+
+        new_score = self.estimate_logpdf(key, cv, *args)
+        new_tr = DistributionTrace(self, args, cv, new_score)
+        return (new_tr, new_score - old_score, Diff.unknown_change(cv),
+                Update(ChoiceMap.choice(old_v)))
+
+    def _edit_regenerate(self, key, trace, selection: Selection, args,
+                         args_unchanged: bool):
+        """A selected choice is redrawn from the prior at the new
+        arguments (weight exactly 0); an unselected one is kept and
+        rescored. A tensor selection flag draws, selects and rescores."""
+        old_v = trace.get_retval()
+        old_score = trace.get_score()
+        flag = selection.check()
+
+        if FlagOp.concrete_false(flag):
+            return self._edit_update(key, trace, ChoiceMap.empty(), args,
+                                     args_unchanged)
+        if FlagOp.concrete_true(flag):
+            new_score, v = self.random_weighted(key, *args)
+            new_tr = DistributionTrace(self, args, v, new_score)
+            return (new_tr, _zeros(key), Diff.unknown_change(v),
+                    Regenerate(selection))
+        key, est_key = random.split(key).unbind(-2)
+        _, sampled = self.random_weighted(key, *args)
+        v = tree_where(flag, sampled, old_v)
+        new_score = self.estimate_logpdf(est_key, v, *args)
+        new_tr = DistributionTrace(self, args, v, new_score)
+        w = _select(flag, torch.zeros_like(new_score), new_score - old_score)
+        return new_tr, w, Diff.unknown_change(v), Regenerate(selection)
 
 
 class ExactDensity(Distribution):
@@ -168,7 +253,63 @@ class ExactDensity(Distribution):
         if batch and tuple(lp.shape[:len(batch)]) == batch:
             dims = tuple(range(len(batch), lp.ndim))
             return lp.sum(dim=dims) if dims else lp
-        return lp.sum() if lp.ndim > 0 else lp
+        lp = lp.sum() if lp.ndim > 0 else lp
+        # Shared by every execution (a constant value under constant
+        # parameters): one score per key all the same.
+        return lp.expand(batch) if batch else lp
+
+    def iid(self, sample_shape) -> "IIDBlock":
+        """``sample_shape`` iid draws of this distribution as one choice,
+        scored by the summed log-density."""
+        if isinstance(sample_shape, int):
+            sample_shape = (sample_shape,)
+        return IIDBlock(self, tuple(int(s) for s in sample_shape))
+
+
+@Pytree.dataclass
+class IIDBlock(ExactDensity):
+    """``shape`` iid draws of an inner :class:`ExactDensity` as one
+    choice: value ``B + shape + event``, score the summed log-density.
+    Draw ``j`` uses key ``j`` of ``split(key, prod(shape))``, as the JAX
+    package's vmap over split keys does; the draws loop over ``j`` so
+    that a per-execution parameter meets its own key batch."""
+
+    inner: ExactDensity
+    shape: tuple = Pytree.static()
+
+    def _n(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    def sample(self, key, *args):
+        keys = random.split(key, self._n())
+        draws = torch.stack([self.inner.sample(keys[..., j, :], *args)
+                             for j in range(self._n())], dim=key.ndim - 1)
+        b = _batch(key)
+        return draws.reshape(b + self.shape + tuple(draws.shape[len(b) + 1:]))
+
+    def logpdf(self, v, *args):
+        return self._logpdf_sum(v, *args)
+
+    def _logpdf_sum(self, v, *args, batch: tuple = ()) -> Score:
+        r = len(batch)
+        v = torch.as_tensor(v)
+        flat = v.reshape(tuple(v.shape[:r]) + (self._n(),)
+                         + tuple(v.shape[r + len(self.shape):]))
+        lead = (slice(None),) * r
+        total = None
+        for j in range(self._n()):
+            lp = self.inner._logpdf_sum(flat[lead + (j,)], *args, batch=batch)
+            total = lp if total is None else total + lp
+        return total
+
+    def get_support(self, *args):
+        return self.inner.get_support(*args)
+
+    def __repr__(self):
+        return f"{self.inner!r}.iid({self.shape})"
 
 
 @Pytree.dataclass

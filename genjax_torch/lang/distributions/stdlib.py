@@ -1,5 +1,5 @@
-"""The distributions of the main path: normal, beta, flip / bernoulli,
-uniform and categorical (counterpart of
+"""The distributions of the ported paths: normal, beta, gamma, flip /
+bernoulli, uniform, categorical and mv_normal_diag (counterpart of
 ``genjax_tpu/lang/distributions/stdlib.py``; the rest of its ~45
 distributions are not ported yet). Parameterizations follow the JAX
 package: ``flip`` takes probs, ``bernoulli`` and ``categorical`` logits.
@@ -17,7 +17,8 @@ import torch
 from genjax_torch.core import random
 from genjax_torch.lang.distributions.distribution import exact_density
 
-__all__ = ["bernoulli", "beta", "categorical", "flip", "normal", "uniform"]
+__all__ = ["bernoulli", "beta", "categorical", "flip", "gamma",
+           "mv_normal_diag", "normal", "uniform"]
 
 
 def _device(*xs):
@@ -103,6 +104,25 @@ beta = exact_density(_beta_sample, _beta_logpdf, "beta",
                      support="unit_interval")
 
 
+def _gamma_sample(key, conc, rate):
+    conc, rate = _f(conc, key.device), _f(rate, key.device)
+    return random.gamma(key, conc, random.event_shape(key, conc, rate)) / rate
+
+
+def _gamma_logpdf(v, conc, rate):
+    dev = _device(v, conc, rate)
+    v, a, r = _f(v, dev), _f(conc, dev), _f(rate, dev)
+    lp = _xlogy(a - 1.0, v) - v * r - torch.lgamma(a) + a * torch.log(r)
+    return torch.where(v < 0.0, torch.full_like(lp, -math.inf), lp)
+
+
+#: Gamma(concentration, rate), the TFP rate convention. Its draws come
+#: from the port's rejection loop (``core/random.py::loggamma``), equal in
+#: distribution to ``jax.random.gamma``, not bit for bit.
+gamma = exact_density(_gamma_sample, _gamma_logpdf, "gamma",
+                      support="positive")
+
+
 def _bernoulli_logits_logpmf(v, logits):
     dev = _device(v, logits)
     v, logits = _f(v, dev), _f(logits, dev)
@@ -153,3 +173,17 @@ def _categorical_logpmf(v, logits):
 #: Categorical(logits).
 categorical = exact_density(_categorical_sample, _categorical_logpmf,
                             "categorical")
+
+
+def _mvn_diag_sample(key, loc, scale_diag):
+    loc, scale = _f(loc, key.device), _f(scale_diag, key.device)
+    return loc + scale * random.normal(key, random.event_shape(key, loc, scale))
+
+
+def _mvn_diag_logpdf(v, loc, scale_diag):
+    return _normal_logpdf(v, loc, scale_diag).sum(dim=-1)
+
+
+#: MultivariateNormalDiag(loc, scale_diag).
+mv_normal_diag = exact_density(_mvn_diag_sample, _mvn_diag_logpdf,
+                               "mv_normal_diag")

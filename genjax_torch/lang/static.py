@@ -7,33 +7,58 @@ simulates, scores or constrains that site. Per-site keys are
 ``fold_in(key, site_counter)``, as in JAX, so the same key data gives the
 same draws. A key batch ``B + (2,)`` runs ``B`` executions at once.
 
-``edit`` (Update / Regenerate / StaticRequest on a ``@gen`` trace) is not
-ported yet: it waits for the combinators and edits slice (ROADMAP queue 1
-item 8).
+Under a batch the handler knows which tensors of the body are
+per-execution, as JAX's batching tracer does: the body's arguments and
+its traced calls' return values, and whatever a torch operation computes
+from them (:class:`_Provenance`). Every other tensor is a constant of the
+body; it is expanded to ``B`` (a zero-stride view) before it reaches a
+traced call or leaves in the return value, so that every tensor a
+generative function receives or a trace holds leads with ``B``, whatever
+its length.
+
+``edit`` serves ``Update``, ``Regenerate`` and ``StaticRequest`` by the
+JAX package's coarse handler path: the body runs again under an edit
+handler, each visited site edits its old subtrace (or is generated /
+simulated when it is new), and dropped sites leave the weight. A site or
+return value counts as changed when any of its inputs did. The JAX
+package's default, the staged fine-grained path (``static_edit.py``),
+gives the same draws and weights and only re-scores less; it is not
+ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
+import functools
+import weakref
 from typing import Any, Callable
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 from genjax_torch.core import random
-from genjax_torch.core.pytree import Pytree
+from genjax_torch.core.compiler.interpreters.incremental import Diff
+from genjax_torch.core.pytree import Pytree, tree_leaves, tree_map
 from genjax_torch.gfi.choice_map import ChoiceMap
 from genjax_torch.gfi.concepts import Argdiffs, EditRequest, Score
 from genjax_torch.gfi.gfn import GenerativeFunction, Trace
+from genjax_torch.gfi.requests import Regenerate, Update
 from genjax_torch.gfi.selection import Selection
 
 __all__ = [
     "gen",
     "Fn",
     "StaticTrace",
+    "StaticRequest",
     "trace_here",
     "AddressReuse",
     "MissingAddress",
 ]
+
+#: handle_kwargs wrappers for sources without a ``__dict__`` (see
+#: :meth:`Fn.handle_kwargs`).
+_KWARGED_FNS: dict = {}
 
 
 class AddressReuse(Exception):
@@ -72,7 +97,73 @@ def trace_here(addr, gen_fn: GenerativeFunction, args: tuple):
         raise TypeError(
             f"Trace addresses must be static str or int, got {addr!r}."
         )
-    return stack[-1].handle(addr, gen_fn, args)
+    return stack[-1].call(addr, gen_fn, args)
+
+
+def _tensors(obj):
+    """The tensors among a torch call's arguments or results (nested in
+    lists, tuples and dicts)."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (list, tuple)):
+        for o in obj:
+            yield from _tensors(o)
+    elif isinstance(obj, dict):
+        for o in obj.values():
+            yield from _tensors(o)
+
+
+class _Provenance(TorchFunctionMode):
+    """Active while a batched body's own code runs: every tensor that a
+    torch operation computes from a marked tensor is marked too. The
+    body's arguments and its traced calls' return values are marked, so
+    an unmarked tensor is a constant of the body (made by a factory,
+    closed over, or computed from constants alone). A value made from a
+    marked tensor's shape only (``torch.zeros(x.shape)``) is a constant:
+    write ``torch.zeros_like(x)`` for a per-execution one."""
+
+    def __init__(self, batch: tuple):
+        super().__init__()
+        self.batch = batch
+        self._marked: dict = {}
+
+    def _mark_one(self, t: torch.Tensor):
+        self._marked[id(t)] = weakref.ref(t)
+
+    def mark(self, tree):
+        for v in tree_leaves(tree):
+            if isinstance(v, torch.Tensor):
+                self._mark_one(v)
+        return tree
+
+    def carries(self, v: torch.Tensor) -> bool:
+        ref = self._marked.get(id(v))
+        return ref is not None and ref() is v
+
+    def lift(self, tree):
+        """``tree`` with every constant tensor expanded to the batch."""
+        return tree_map(
+            lambda v: v.expand(self.batch + tuple(v.shape))
+            if isinstance(v, torch.Tensor) and not self.carries(v) else v,
+            tree)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if any(self.carries(t) for t in _tensors((args, kwargs))):
+            for t in _tensors(out):
+                self._mark_one(t)
+        return out
+
+    @contextlib.contextmanager
+    def suspended(self):
+        """Off while the handler serves a traced call: the callee's own
+        operations are not the body's."""
+        self.__exit__(None, None, None)
+        try:
+            yield
+        finally:
+            self.__enter__()
 
 
 def validate_new_address(addresses, addr):
@@ -94,11 +185,15 @@ def _zeros(key: torch.Tensor) -> torch.Tensor:
 
 
 class StaticHandler:
-    """Base: bookkeeping shared by the GFI transforms."""
+    """Base: bookkeeping shared by the GFI transforms. ``batch`` is the
+    shape of the executions' batch (the key's, or ``assess``'s
+    ``batch``)."""
 
-    def __init__(self):
+    def __init__(self, batch: tuple = ()):
         self.addresses: list = []
         self.subtraces: list[Trace] = []
+        self.batch = tuple(batch)
+        self.provenance: _Provenance | None = None
         self._token = None
 
     def visit(self, addr):
@@ -107,6 +202,29 @@ class StaticHandler:
 
     def record(self, subtrace: Trace):
         self.subtraces.append(subtrace)
+
+    def run(self, source: Callable, args: tuple):
+        """Run the body under this handler; under a batch, with its
+        constants told apart (:class:`_Provenance`) and the return
+        value's constants lifted."""
+        with self:
+            if not self.batch:
+                return source(*args)
+            mode = self.provenance = _Provenance(self.batch)
+            mode.mark(args)
+            with mode:
+                retval = source(*args)
+            return mode.lift(retval)
+
+    def call(self, addr, gen_fn: GenerativeFunction, args: tuple):
+        """A traced call from the body: its constant arguments lifted to
+        the batch, its return value per-execution."""
+        mode = self.provenance
+        if mode is None:
+            return self.handle(addr, gen_fn, args)
+        with mode.suspended():
+            retval = self.handle(addr, gen_fn, mode.lift(args))
+        return mode.mark(retval)
 
     def handle(self, addr, gen_fn: GenerativeFunction, args: tuple):
         raise NotImplementedError
@@ -122,7 +240,7 @@ class StaticHandler:
 
 class SimulateHandler(StaticHandler):
     def __init__(self, key):
-        super().__init__()
+        super().__init__(key.shape[:-1])
         self.key = key
         self.counter = 0
 
@@ -136,8 +254,8 @@ class SimulateHandler(StaticHandler):
 
 
 class AssessHandler(StaticHandler):
-    def __init__(self, chm: ChoiceMap):
-        super().__init__()
+    def __init__(self, chm: ChoiceMap, batch: tuple = ()):
+        super().__init__(batch)
         self.chm = chm
         self.score = torch.zeros(())
 
@@ -146,14 +264,14 @@ class AssessHandler(StaticHandler):
         submap = self.chm.get_submap(addr)
         if submap.static_is_empty():
             raise MissingAddress(addr)
-        score, retval = gen_fn.assess(submap, args)
+        score, retval = gen_fn.assess(submap, args, batch=self.batch)
         self.score = self.score + score
         return retval
 
 
 class GenerateHandler(StaticHandler):
     def __init__(self, key, constraint: ChoiceMap):
-        super().__init__()
+        super().__init__(key.shape[:-1])
         self.key = key
         self.constraint = constraint
         self.counter = 0
@@ -168,6 +286,139 @@ class GenerateHandler(StaticHandler):
         self.weight = self.weight + w
         self.record(subtrace)
         return subtrace.get_retval()
+
+
+class _EditHandler(StaticHandler):
+    """Bookkeeping shared by the three edit handlers: the old trace, the
+    per-site key counter, the weight, and whether anything upstream
+    changed (the coarse rule: a site's arguments count as changed once
+    any argument or earlier return value did)."""
+
+    def __init__(self, key, previous: "StaticTrace", args_changed: bool):
+        super().__init__(key.shape[:-1])
+        self.key = key
+        self.previous = previous
+        self.counter = 0
+        self.weight = _zeros(key)
+        self.any_change = args_changed
+
+    def next_key(self):
+        sub_key = random.fold_in(self.key, self.counter)
+        self.counter += 1
+        return sub_key
+
+    def argdiffs(self, args):
+        return (Diff.unknown_change(args) if self.any_change
+                else Diff.no_change(args))
+
+    def old_subtrace(self, addr):
+        try:
+            return self.previous.get_inner_trace(addr)
+        except KeyError:
+            return None
+
+    def note(self, retdiff):
+        if not Diff.static_check_no_change(retdiff):
+            self.any_change = True
+
+    def dropped(self):
+        """The old trace's sites that this execution did not visit."""
+        visited = set(self.addresses)
+        return [(addr, sub) for addr, sub in zip(self.previous.addresses,
+                                                 self.previous.subtraces)
+                if addr not in visited]
+
+
+class UpdateHandler(_EditHandler):
+    """Serve ``Update(constraint)``: constrained sites take their new
+    values, the rest replay (rescored under changed arguments); a newly
+    visited site is generated under its constraint."""
+
+    def __init__(self, key, previous, constraint: ChoiceMap,
+                 args_changed: bool):
+        super().__init__(key, previous, args_changed)
+        self.constraint = constraint
+        self.discard: list = []
+
+    def handle(self, addr, gen_fn, args):
+        self.visit(addr)
+        sub_key = self.next_key()
+        submap = self.constraint.get_submap(addr)
+        old_sub = self.old_subtrace(addr)
+        if old_sub is None:
+            new_sub, w = gen_fn.generate(sub_key, submap, args)
+            self.any_change = True
+        else:
+            new_sub, w, retdiff, bwd = gen_fn.edit(
+                sub_key, old_sub, Update(submap), self.argdiffs(args))
+            self.note(retdiff)
+            if isinstance(bwd, Update) and not bwd.constraint.static_is_empty():
+                self.discard.append((addr, bwd.constraint))
+        self.weight = self.weight + w
+        self.record(new_sub)
+        return new_sub.get_retval()
+
+    def settle_dropped(self):
+        """A dropped site leaves the weight and its choices go to the
+        discard, so that the backward ``Update`` restores them."""
+        for addr, sub in self.dropped():
+            self.any_change = True
+            self.weight = self.weight - sub.get_score()
+            self.discard.append((addr, sub.get_choices()))
+
+
+class RegenerateHandler(_EditHandler):
+    """Serve ``Regenerate(selection)``: selected sites redraw from their
+    prior conditionals; a newly visited site is simulated (weight 0)."""
+
+    def __init__(self, key, previous, selection: Selection,
+                 args_changed: bool):
+        super().__init__(key, previous, args_changed)
+        self.selection = selection
+
+    def handle(self, addr, gen_fn, args):
+        self.visit(addr)
+        sub_key = self.next_key()
+        old_sub = self.old_subtrace(addr)
+        if old_sub is None:
+            new_sub = gen_fn.simulate(sub_key, args)
+            self.any_change = True
+        else:
+            new_sub, w, retdiff, _ = gen_fn.edit(
+                sub_key, old_sub, Regenerate(self.selection(addr)),
+                self.argdiffs(args))
+            self.note(retdiff)
+            self.weight = self.weight + w
+        self.record(new_sub)
+        return new_sub.get_retval()
+
+    def settle_dropped(self):
+        for _, sub in self.dropped():
+            self.any_change = True
+            self.weight = self.weight - sub.get_score()
+
+
+class StaticEditHandler(_EditHandler):
+    """Serve :class:`StaticRequest`: each site's own request (default: the
+    empty ``Update``)."""
+
+    def __init__(self, key, previous, requests: dict, args_changed: bool):
+        super().__init__(key, previous, args_changed)
+        self.requests = requests
+        self.bwd: dict = {}
+
+    def handle(self, addr, gen_fn, args):
+        self.visit(addr)
+        sub_key = self.next_key()
+        request = self.requests.get(addr, Update(ChoiceMap.empty()))
+        old_sub = self.previous.get_inner_trace(addr)
+        new_sub, w, retdiff, bwd = request.edit(sub_key, old_sub,
+                                                self.argdiffs(args))
+        self.note(retdiff)
+        self.weight = self.weight + w
+        self.bwd[addr] = bwd
+        self.record(new_sub)
+        return new_sub.get_retval()
 
 
 @Pytree.dataclass
@@ -206,7 +457,51 @@ class StaticTrace(Trace[Any]):
         for addr, sub in zip(self.addresses, self.subtraces):
             if addr == address:
                 return sub
+        # A tupled site ("x", "x0") is reachable component by component:
+        # the first component gives a view over the matching suffixes.
+        matches = tuple(
+            (addr[1:] if len(addr) > 2 else addr[1], sub)
+            for addr, sub in zip(self.addresses, self.subtraces)
+            if isinstance(addr, tuple) and addr[0] == address
+        )
+        if matches:
+            return _PrefixTrace(tuple(a for a, _ in matches),
+                                tuple(sub for _, sub in matches))
         raise KeyError(f"No subtrace at address {address!r}")
+
+
+@Pytree.dataclass
+class _PrefixTrace(Trace[Any]):
+    """The subtraces under one component of tupled addresses: further
+    ``get_inner_trace`` descent, ``get_choices`` and ``get_score`` (the
+    group's sum)."""
+
+    addresses: tuple = Pytree.static()
+    subtraces: tuple = ()
+
+    def get_args(self) -> tuple:
+        return ()
+
+    def get_retval(self):
+        return None
+
+    def get_gen_fn(self):
+        return None
+
+    get_score = StaticTrace.get_score
+    get_choices = StaticTrace.get_choices
+    get_inner_trace = StaticTrace.get_inner_trace
+
+
+@Pytree.dataclass
+class StaticRequest(EditRequest):
+    """Address-wise edit: ``addressed[addr]`` edits the subtrace at
+    ``addr`` (default: the empty ``Update``)."""
+
+    addressed: dict = Pytree.field(default_factory=dict)
+
+    def edit(self, key, tr: StaticTrace, argdiffs: Argdiffs):
+        return tr.get_gen_fn().edit(key, tr, self, argdiffs)
 
 
 @Pytree.dataclass
@@ -224,19 +519,19 @@ class Fn(GenerativeFunction[Any]):
         return getattr(self.source, "__name__", "gen_fn")
 
     def simulate(self, key, args: tuple) -> StaticTrace:
-        with SimulateHandler(key) as h:
-            retval = self.source(*args)
+        h = SimulateHandler(key)
+        retval = h.run(self.source, args)
         return StaticTrace(self, args, retval, tuple(h.subtraces),
                            tuple(h.addresses))
 
-    def assess(self, chm: ChoiceMap, args: tuple):
-        with AssessHandler(chm) as h:
-            retval = self.source(*args)
+    def assess(self, chm: ChoiceMap, args: tuple, batch: tuple = ()):
+        h = AssessHandler(chm, tuple(batch))
+        retval = h.run(self.source, args)
         return h.score, retval
 
     def generate(self, key, constraint: ChoiceMap, args: tuple):
-        with GenerateHandler(key, constraint) as h:
-            retval = self.source(*args)
+        h = GenerateHandler(key, constraint)
+        retval = h.run(self.source, args)
         trace = StaticTrace(self, args, retval, tuple(h.subtraces),
                             tuple(h.addresses))
         return trace, h.weight
@@ -248,13 +543,76 @@ class Fn(GenerativeFunction[Any]):
             w = w + sub.get_gen_fn().project(sub_key, sub, selection(addr))
         return w
 
+    def __get__(self, instance, _owner):
+        # Method models: bind ``self`` as a function would.
+        if instance is None:
+            return self
+        return self.partial_apply(instance)
+
     def edit(self, key, trace: StaticTrace, request: EditRequest,
              argdiffs: Argdiffs):
-        raise NotImplementedError(
-            "Fn.edit is not ported yet: @gen edits (Update, Regenerate, "
-            "StaticRequest) come with ROADMAP queue 1 item 8, "
-            "'Combinators and edits'."
-        )
+        args = Diff.tree_primal(argdiffs)
+        args_changed = not Diff.static_check_no_change(argdiffs)
+        if isinstance(request, Update):
+            h: Any = UpdateHandler(key, trace, request.constraint,
+                                   args_changed)
+        elif isinstance(request, Regenerate):
+            h = RegenerateHandler(key, trace, request.selection, args_changed)
+        elif isinstance(request, StaticRequest):
+            h = StaticEditHandler(key, trace, request.addressed, args_changed)
+        else:
+            raise NotImplementedError(
+                f"Fn does not support request {type(request).__name__}")
+        retval = h.run(self.source, args)
+        if not isinstance(request, StaticRequest):
+            h.settle_dropped()
+        new_trace = StaticTrace(self, args, retval, tuple(h.subtraces),
+                                tuple(h.addresses))
+        retdiff = (Diff.unknown_change(retval) if h.any_change
+                   else Diff.no_change(retval))
+        if isinstance(request, Update):
+            discard = ChoiceMap.empty()
+            for addr, sub_discard in h.discard:
+                discard = discard | sub_discard.extend(addr)
+            bwd: EditRequest = Update(discard)
+        elif isinstance(request, Regenerate):
+            bwd = Regenerate(request.selection)
+        else:
+            bwd = StaticRequest(h.bwd)
+        return new_trace, h.weight, retdiff, bwd
+
+    def inline(self, *args):
+        """Run the body under the current handler: its sites join the
+        caller's, with no address nesting."""
+        return self.source(*args)
+
+    def handle_kwargs(self) -> "Fn":
+        """The form taking ``(args, kwargs)``. The wrapper is cached per
+        source, so that two traces of one model compare equal in
+        structure (the accept select of MH needs it)."""
+        source = self.source
+        inst_dict = getattr(source, "__dict__", None)
+        cache = inst_dict if isinstance(inst_dict, dict) else _KWARGED_FNS
+        cache_key = "__genjax_kwarged__" if cache is inst_dict else source
+        fn = cache.get(cache_key)
+        if fn is None:
+
+            def kwarged_source(args, kwargs):
+                return source(*args, **kwargs)
+
+            fn = Fn(kwarged_source)
+            try:
+                cache[cache_key] = fn
+            except TypeError:  # an unhashable callable: no cache
+                pass
+        return fn
+
+    def partial_apply(self, *pre_args) -> "Fn":
+        """Fix leading arguments (static values: the partial lives in the
+        trace's structure)."""
+        partial = functools.partial(self.source, *pre_args)
+        functools.update_wrapper(partial, self.source)
+        return Fn(partial)
 
 
 def gen(fn: Callable) -> Fn:

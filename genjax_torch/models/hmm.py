@@ -1,11 +1,10 @@
-"""Discrete-HMM bootstrap particle filter, the sampled counterpart of the
-exact ``DiscreteHMM`` posterior (counterpart of
-``genjax_tpu/models/hmm.py::hmm_bootstrap_filter``).
+"""The discrete-HMM generative model on the ``Scan`` combinator and its
+bootstrap particle filter, the sampled counterparts of the exact
+``DiscreteHMM`` posterior (counterpart of ``genjax_tpu/models/hmm.py``).
 
-The JAX package advances the ensemble with one-hot contractions
+The JAX package advances the filter's ensemble with one-hot contractions
 (``ops/onehot.py``) because a row gather is slow on the TPU; here a row
-select is plain indexing (``trans_cdf[zs]``). ``hmm_model`` needs the
-``Scan`` combinator and is not ported yet.
+select is plain indexing (``trans_cdf[zs]``).
 """
 
 from __future__ import annotations
@@ -17,8 +16,31 @@ from genjax_torch.inference.pf import particle_filter
 from genjax_torch.lang.distributions.discrete_hmm import (
     DiscreteHMMConfiguration,
 )
+from genjax_torch.lang.distributions.stdlib import categorical
+from genjax_torch.lang.static import gen
 
-__all__ = ["hmm_bootstrap_filter"]
+__all__ = ["hmm_model", "hmm_bootstrap_filter"]
+
+
+def hmm_model(config: DiscreteHMMConfiguration, n_steps: int):
+    """The scanned HMM: latents at ``"z0"`` and ``("chain", t, "z")``,
+    observations at ``"x0"`` and ``("chain", t, "x")``. Under a key batch
+    ``B`` every state is a ``B``-shaped index, so a row of the logits
+    tables is a gather with the batch in front."""
+
+    @gen
+    def step(z, _):
+        z_next = categorical(config.transition_logits[z]) @ "z"
+        _ = categorical(config.observation_logits[z_next]) @ "x"
+        return z_next, z_next
+
+    @gen
+    def hmm():
+        z0 = categorical(config.prior_logits) @ "z0"
+        _ = categorical(config.observation_logits[z0]) @ "x0"
+        _ = step.scan(n=n_steps - 1)(z0, None) @ "chain"
+
+    return hmm
 
 
 def hmm_bootstrap_filter(config: DiscreteHMMConfiguration,

@@ -1,0 +1,355 @@
+"""The port's edits against the JAX package on the same key data: the
+requests (``Update``, ``Regenerate``, ``StaticRequest``, ``EmptyRequest``,
+``DiffAnnotate``), ``Distribution.edit`` on concrete, absent and masked
+constraints and on concrete and tensor selection flags, ``@gen`` edits
+with discards, dropped and new addresses and changed arguments, and the
+backward request's round trip. The JAX package edits ``@gen`` traces by
+its staged fine-grained path or its coarse handler path
+(``FINE_GRAINED_EDITS``); the port has the coarse path only, and each
+``@gen`` case is held against both settings.
+
+Tolerance: weights and scores to 1e-5 relative and 1e-5 absolute, values
+to 1e-5 (the two packages' normals agree to a few ulp and their log and
+lgamma by an ulp); a key batch is held against its executions one by one
+to 1e-6."""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import genjax_torch as gt
+import genjax_tpu as gj
+import genjax_tpu.lang.static as jax_static
+from genjax_torch.core import random as R
+from genjax_torch.interop import key_from_numpy
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _tkey(k):
+    return key_from_numpy(np.asarray(jax.random.key_data(k)))
+
+
+def _np(x):
+    return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x,
+                      np.float64)
+
+
+def close(a, b, **kw):
+    np.testing.assert_allclose(_np(a), _np(b), **(kw or TOL))
+
+
+@pytest.fixture(params=[True, False], ids=["fine", "coarse"])
+def fine(request, monkeypatch):
+    monkeypatch.setattr(jax_static, "FINE_GRAINED_EDITS", request.param)
+    return request.param
+
+
+def _chain(lib):
+    @lib.gen
+    def chain(mu):
+        x = lib.normal(mu, 1.0) @ "x"
+        y = lib.normal(x, 0.5) @ "y"
+        z = lib.normal(x + y, 2.0) @ "z"
+        return z
+
+    return chain
+
+
+def _branchy(lib):
+    @lib.gen
+    def branchy(flag):
+        x = lib.normal(0.0, 1.0) @ "x"
+        if flag:
+            lib.normal(x, 1.0) @ "a"
+        else:
+            lib.normal(x, 2.0) @ "b"
+        return x
+
+    return branchy
+
+
+def _pair(k=3, mu=0.5):
+    cj, ct = _chain(gj), _chain(gt)
+    key = jax.random.key(k)
+    return (cj.simulate(key, (mu,)), ct.simulate(_tkey(key), (mu,)))
+
+
+def _same_choices(trj, trt, addrs):
+    for a in addrs:
+        close(trt.get_choices()[a], trj.get_choices()[a])
+
+
+# -- requests ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["update", "regenerate", "static",
+                                  "empty_new_args", "annotate"])
+def test_gen_edits_match_jax(case, fine):
+    trj, trt = _pair()
+    k = jax.random.key(11)
+    if case == "update":
+        rj = gj.Update(gj.C["x"].set(0.3) | gj.C["z"].set(-1.0))
+        rt = gt.Update(gt.C["x"].set(0.3) | gt.C["z"].set(-1.0))
+    elif case == "regenerate":
+        rj, rt = gj.Regenerate(gj.S.at["y"]), gt.Regenerate(gt.S.at["y"])
+    elif case == "static":
+        rj = gj.StaticRequest({"x": gj.Update(gj.ChoiceMap.choice(0.1)),
+                               "z": gj.Regenerate(gj.S.all())})
+        rt = gt.StaticRequest({"x": gt.Update(gt.ChoiceMap.choice(0.1)),
+                               "z": gt.Regenerate(gt.Selection.all())})
+    elif case == "empty_new_args":
+        rj, rt = gj.EmptyRequest(), gt.EmptyRequest()
+    else:
+        rj = gj.Update(gj.C["y"].set(0.2)).map(lambda d: d)
+        rt = gt.Update(gt.C["y"].set(0.2)).map(lambda d: d)
+    if case == "empty_new_args":
+        argj = gj.Diff.unknown_change((1.5,))
+        argt = gt.Diff.unknown_change((1.5,))
+        nj, wj, _, bj = trj.edit(k, rj, argj)
+        nt, wt, _, bt = trt.edit(_tkey(k), rt, argt)
+    else:
+        nj, wj, _, bj = trj.edit(k, rj)
+        nt, wt, _, bt = trt.edit(_tkey(k), rt)
+    close(wt, wj)
+    close(nt.get_score(), nj.get_score())
+    _same_choices(nj, nt, ("x", "y", "z"))
+    if case == "update":
+        # The discard holds the old values of the constrained sites.
+        _same_choices(trj, trt, ("x", "z"))
+        close(bt.constraint["x"], bj.constraint["x"])
+        close(bt.constraint["z"], trt.get_choices()["z"])
+    if case in ("update", "regenerate", "static", "annotate"):
+        # The weight is the change of score (every proposal here is the
+        # prior or a constraint), and the backward request restores the
+        # old choices with weight -w.
+        if case in ("update", "annotate"):
+            close(wt, nt.get_score() - trt.get_score())
+        back, wb, _, _ = nt.edit(_tkey(jax.random.key(12)), bt)
+        if case == "update":
+            _same_choices(trj, back, ("x", "y", "z"))
+            close(wb, -wt)
+
+
+def test_regenerate_identity_and_round_trip():
+    """Regenerate: w = Δscore − Δ(log-density of the regenerated sites),
+    and its backward request (Regenerate again) on the same draws leaves
+    a weight of -w."""
+    _, trt = _pair(5)
+    new, w, _, bwd = trt.edit(R.key(9), gt.Regenerate(gt.S.at["x"]))
+    d_score = new.get_score() - trt.get_score()
+    d_site = (new.get_subtrace("x").get_score()
+              - trt.get_subtrace("x").get_score())
+    close(w, d_score - d_site)
+    assert isinstance(bwd, gt.Regenerate)
+    back, wb, _, _ = new.edit(R.key(9), gt.Update(
+        gt.C["x"].set(trt.get_choices()["x"])))
+    close(back.get_score(), trt.get_score())
+
+
+def test_dropped_and_new_addresses_match_jax(fine):
+    """Changing the argument flips the branch: "a" is dropped (its score
+    leaves the weight, its choice goes to the discard) and "b" is new
+    (generated under its constraint)."""
+    bj, bt = _branchy(gj), _branchy(gt)
+    key = jax.random.key(4)
+    trj = bj.simulate(key, (True,))
+    trt = bt.simulate(_tkey(key), (True,))
+    k = jax.random.key(5)
+    for cj, ct in ((gj.C["b"].set(0.5), gt.C["b"].set(0.5)),
+                   (gj.ChoiceMap.empty(), gt.ChoiceMap.empty())):
+        nj, wj, _, dj = trj.edit(k, gj.Update(cj), gj.Diff.unknown_change(
+            (False,)))
+        nt, wt, _, dt = trt.edit(_tkey(k), gt.Update(ct),
+                                 gt.Diff.unknown_change((False,)))
+        close(wt, wj)
+        close(nt.get_choices()["b"], nj.get_choices()["b"])
+        close(dt.constraint["a"], dj.constraint["a"])
+        assert "a" not in nt.get_choices()
+        # Round trip: the backward Update on the old argument restores a.
+        back, wb, _, _ = nt.edit(_tkey(k), dt, gt.Diff.unknown_change(
+            (True,)))
+        close(back.get_choices()["a"], trt.get_choices()["a"])
+        if not ct.static_is_empty():
+            close(wb, -wt)
+    # Regenerate across the branch: the new site is simulated (weight 0
+    # for it) and the dropped one leaves the weight.
+    nj, wj, _, _ = trj.edit(k, gj.Regenerate(gj.S.at["x"]),
+                            gj.Diff.unknown_change((False,)))
+    nt, wt, _, _ = trt.edit(_tkey(k), gt.Regenerate(gt.S.at["x"]),
+                            gt.Diff.unknown_change((False,)))
+    close(wt, wj)
+    close(nt.get_choices()["b"], nj.get_choices()["b"])
+
+
+# -- Distribution.edit -------------------------------------------------------------
+
+
+def _normal_trace(lib, key, loc=0.2, scale=1.5):
+    return lib.normal.simulate(key, (loc, scale))
+
+
+@pytest.mark.parametrize("kind", ["concrete", "absent", "masked_true",
+                                  "masked_false", "masked_tensor",
+                                  "new_args"])
+def test_distribution_update_matches_jax(kind):
+    key = jax.random.key(21)
+    trj, trt = _normal_trace(gj, key), _normal_trace(gt, _tkey(key))
+    k = jax.random.key(22)
+    args_j, args_t = gj.Diff.no_change((0.2, 1.5)), gt.Diff.no_change(
+        (0.2, 1.5))
+    if kind == "concrete":
+        cj, ct = gj.ChoiceMap.choice(0.7), gt.ChoiceMap.choice(0.7)
+    elif kind in ("absent", "new_args"):
+        cj, ct = gj.ChoiceMap.empty(), gt.ChoiceMap.empty()
+        if kind == "new_args":
+            args_j = gj.Diff.unknown_change((1.0, 0.5))
+            args_t = gt.Diff.unknown_change((1.0, 0.5))
+    else:
+        flag = {"masked_true": True, "masked_false": False,
+                "masked_tensor": None}[kind]
+        fj = jnp.asarray(True) if flag is None else flag
+        ft = torch.tensor(True) if flag is None else flag
+        cj = gj.ChoiceMap.choice(gj.Mask(jnp.asarray(0.7), fj))
+        ct = gt.ChoiceMap.choice(gt.Mask(torch.tensor(0.7), ft))
+    nj, wj, _, bj = gj.normal.edit(k, trj, gj.Update(cj), args_j)
+    nt, wt, _, bt = gt.normal.edit(_tkey(k), trt, gt.Update(ct), args_t)
+    close(wt, wj)
+    close(nt.get_retval(), nj.get_retval())
+    close(nt.get_score(), nj.get_score())
+    vj, vt = bj.constraint.get_value(), bt.constraint.get_value()
+    assert (vj is None) == (vt is None)
+    if vt is not None:
+        close(gt.Mask.build(vt).value, gj.Mask.build(vj).value)
+
+
+@pytest.mark.parametrize("flag", [True, False, "tensor_true",
+                                  "tensor_false"])
+def test_distribution_regenerate_matches_jax(flag):
+    """Concrete flags hand the key to random_weighted as it is; a tensor
+    flag splits it into sample and estimate keys, as in JAX."""
+    key = jax.random.key(31)
+    trj, trt = _normal_trace(gj, key), _normal_trace(gt, _tkey(key))
+    k = jax.random.key(32)
+    if isinstance(flag, bool):
+        sj, st = ((gj.S.all(), gt.Selection.all()) if flag
+                  else (gj.S.none(), gt.Selection.none()))
+    else:
+        on = flag == "tensor_true"
+        sj = gj.S.all().mask(jnp.asarray(on))
+        st = gt.Selection.all().mask(torch.tensor(on))
+    for argj, argt in ((gj.Diff.no_change((0.2, 1.5)),
+                        gt.Diff.no_change((0.2, 1.5))),
+                       (gj.Diff.unknown_change((1.0, 0.5)),
+                        gt.Diff.unknown_change((1.0, 0.5)))):
+        nj, wj, _, _ = gj.normal.edit(k, trj, gj.Regenerate(sj), argj)
+        nt, wt, _, _ = gt.normal.edit(_tkey(k), trt, gt.Regenerate(st), argt)
+        close(wt, wj)
+        close(nt.get_retval(), nj.get_retval())
+        close(nt.get_score(), nj.get_score())
+
+
+def test_batched_edits_are_per_execution():
+    """A key batch of 6 runs 6 edits: each execution's weight, choices
+    and discard equal the unbatched edit on its own key, for Update,
+    Regenerate and a per-execution selection flag."""
+    ct = _chain(gt)
+    keys = R.split(R.key(7), 6)
+    ekeys = R.split(R.key(8), 6)
+    mus = torch.linspace(-1.0, 1.0, 6)
+    batched = ct.simulate(keys, (mus,))
+    flags = torch.tensor([True, False, True, True, False, False])
+    requests = [
+        (gt.Update(gt.C["x"].set(torch.linspace(0.0, 0.5, 6))),
+         lambda i: gt.Update(gt.C["x"].set(torch.linspace(0.0, 0.5, 6)[i]))),
+        (gt.Regenerate(gt.S.at["y"]), lambda i: gt.Regenerate(gt.S.at["y"])),
+        (gt.Regenerate(gt.S.at["y"].mask(flags)),
+         lambda i: gt.Regenerate(gt.S.at["y"].mask(flags[i]))),
+    ]
+    for req, one_req in requests:
+        new, w, _, _ = batched.edit(ekeys, req)
+        assert w.shape == (6,)
+        for i in range(6):
+            one = ct.simulate(keys[i], (mus[i],))
+            n1, w1, _, _ = one.edit(ekeys[i], one_req(i))
+            close(w[i], w1, rtol=1e-6, atol=1e-6)
+            for a in ("x", "y", "z"):
+                close(new.get_choices()[a][i], n1.get_choices()[a],
+                      rtol=1e-6, atol=1e-6)
+
+
+# -- distributions of the slice ------------------------------------------------------
+
+
+def test_mv_normal_diag_and_iid_block_match_jax():
+    key = jax.random.key(41)
+    loc = np.linspace(-1.0, 1.0, 5).astype(np.float32)
+    scale = np.linspace(0.5, 2.0, 5).astype(np.float32)
+    trj = gj.mv_normal_diag.simulate(key, (jnp.asarray(loc),
+                                           jnp.asarray(scale)))
+    trt = gt.mv_normal_diag.simulate(_tkey(key), (torch.as_tensor(loc),
+                                                  torch.as_tensor(scale)))
+    close(trt.get_retval(), trj.get_retval())
+    close(trt.get_score(), trj.get_score())
+
+    @gj.gen
+    def jm():
+        return gj.normal(0.5, 2.0, sample_shape=(2, 3)) @ "x"
+
+    @gt.gen
+    def tm():
+        return gt.normal(0.5, 2.0, sample_shape=(2, 3)) @ "x"
+
+    trj, trt = jm.simulate(key, ()), tm.simulate(_tkey(key), ())
+    assert tuple(trt.get_retval().shape) == (2, 3)
+    close(trt.get_retval(), trj.get_retval())
+    close(trt.get_score(), trj.get_score())
+    # Batched: each key's block is the unbatched one.
+    keys = R.split(R.key(2), 3)
+    b = tm.simulate(keys, ())
+    for i in range(3):
+        close(b.get_retval()[i], tm.simulate(keys[i], ()).get_retval(),
+              rtol=0, atol=0)
+
+
+def test_gamma_matches_jax_in_law():
+    """gamma's log-density equals the JAX package's; its draws come from
+    the port's own rejection loop, so they are held to the law: the mean
+    and variance of 20000 draws at (conc, rate) = (2.5, 1.5) within 5
+    standard errors."""
+    vs = np.array([0.1, 0.5, 1.0, 3.0], np.float32)
+    close(gt.gamma.assess(gt.ChoiceMap.choice(torch.as_tensor(vs)),
+                          (2.5, 1.5))[0],
+          gj.gamma.assess(gj.ChoiceMap.choice(jnp.asarray(vs)),
+                          (2.5, 1.5))[0])
+    assert gt.gamma.get_support(2.5, 1.5) == "positive"
+    draws = gt.gamma.simulate(R.split(R.key(3), 20000),
+                              (2.5, 1.5)).get_retval().double()
+    mean, var = 2.5 / 1.5, 2.5 / 1.5 ** 2
+    assert abs(float(draws.mean()) - mean) < 5 * math.sqrt(var / 20000)
+    assert abs(float(draws.var()) - var) < 5 * var * math.sqrt(2 / 20000) * 2
+
+
+def test_kwargs_inline_partial_apply():
+    @gt.gen
+    def inner(a, b=1.0):
+        return gt.normal(a, b) @ "v"
+
+    @gt.gen
+    def outer():
+        x = inner(0.0, b=2.0) @ "k"
+        y = inner.inline(x, 0.5)
+        return y
+
+    tr = outer.simulate(R.key(0), ())
+    assert "v" in tr.get_choices() and ("k", "v") in tr.get_choices()
+    bound = inner.partial_apply(3.0)
+    s, _ = bound.assess(gt.C["v"].set(3.0), ())
+    close(s, -math.log(math.sqrt(2 * math.pi)))
+    # handle_kwargs is cached per source, so two traces compare equal in
+    # structure.
+    assert inner.handle_kwargs() is inner.handle_kwargs()

@@ -253,11 +253,48 @@ def test_language_errors():
     _, ct = _models(gt)
     with pytest.raises(gt.MissingAddress):
         ct.assess(C["x"].set(1.0), (0.0,))
-    tr = ct.simulate(gt.random.key(0), (0.0,))
+    # Edits are served now; the combinators still to come raise, naming
+    # their ROADMAP item.
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tr.update(gt.random.key(1), C["x"].set(0.0))
+        ct.switch(ct)
     with pytest.raises(RuntimeError, match="@gen"):
         gt.normal(0.0, 1.0) @ "x"
+
+
+@pytest.mark.parametrize("n", [3, 4])
+def test_indexed_lane_axis_follows_the_batch(n):
+    """An ``Indexed`` node whose leaves carry a particle batch of 4 in
+    front of the lane axis: the lane is read at the explicit position
+    (batch rank, then lane), so with n = 4 lanes, the batch's own
+    length, a lookup still equals the per-particle one, for an int, a
+    0-d tensor and one lane per particle."""
+    from genjax_torch.gfi.choice_map import Indexed
+
+    v = torch.arange(4.0 * n).reshape(4, n)
+    batched = Indexed(ChoiceMap.d({"x": v}), None, n, batch_rank=1)
+    for lane in range(n):
+        want = torch.stack([
+            Indexed(ChoiceMap.d({"x": v[p]}), None, n)[lane, "x"]
+            for p in range(4)])
+        assert torch.equal(batched[lane, "x"], want)
+        got = batched.get_submap(torch.tensor(lane))["x"]
+        assert torch.equal(Mask.build(got).value, want)
+    per = torch.tensor([n - 1, 0, 1, n - 1])
+    got = batched.get_submap(per)["x"]
+    assert torch.equal(Mask.build(got).value, v[torch.arange(4), per])
+    # The same through a Vmap trace on a key batch of 4 particles.
+    @gt.gen
+    def lane(mu):
+        return gt.normal(mu, 1.0) @ "x"
+
+    keys = gt.random.split(gt.random.key(3), 4)
+    mus = torch.arange(float(n)).expand(4, n)
+    tr = lane.vmap().simulate(keys, (mus,))
+    for i in range(n):
+        per_particle = torch.stack([
+            lane.vmap().simulate(keys[p], (mus[p],)).get_choices()[i, "x"]
+            for p in range(4)])
+        assert torch.equal(tr.get_choices()[i, "x"], per_particle)
 
 
 def test_checked_unmask_and_staging_helpers():

@@ -20,7 +20,10 @@ import pytest
 import torch
 
 import bench
+import genjax_tpu as gj
 from __graft_entry__ import entry as jax_entry
+from genjax_tpu.inference import ImportanceK as JaxImportanceK
+from genjax_tpu.inference import Target as JaxTarget
 from genjax_tpu.inference.smc import (
     effective_sample_size as jax_ess,
     resample_indices as jax_resample_indices,
@@ -186,6 +189,123 @@ def test_particle_collection_resample_keeps_log_z():
     assert res.effective_sample_size() == pytest.approx(1000.0)
 
 
+def _length_16_models():
+    """``m ~ N(0, 1)``, ``y ~ N(m, 1)`` and ``ys ~ N(m, 4)`` over 16
+    points, with an argument ``xs`` of length 16 returned as is."""
+
+    @gj.gen
+    def jax_model(xs):
+        m = gj.normal(0.0, 1.0) @ "m"
+        gj.normal(m, 1.0) @ "y"
+        gj.normal(m * jnp.ones(16), 4.0) @ "ys"
+        return xs
+
+    @gt.gen
+    def port_model(xs):
+        m = gt.normal(0.0, 1.0) @ "m"
+        gt.normal(m, 1.0) @ "y"
+        gt.normal(m[..., None] * torch.ones(16), 4.0) @ "ys"
+        return xs
+
+    return jax_model, port_model
+
+
+@pytest.mark.parametrize("k", [8, 16])
+def test_importance_k_keeps_arguments_and_constraints(k):
+    """ImportanceK with K particles against an argument and a constraint
+    of length 16: at K = 16 the lengths coincide with the particle axis,
+    and still both come back from ``resample`` unchanged in every
+    particle. Each run's weights and draws equal the JAX package's on the
+    same key data (1e-5: the normals agree to a few ulp), and the
+    posterior mean of ``m`` (sd 0.58) over 40 runs agrees between K = 8
+    and K = 16 and with the exact one within Monte Carlo error."""
+    jax_model, port_model = _length_16_models()
+    rng = np.random.default_rng(0)
+    ys = rng.normal(1.0, 4.0, size=16).astype(np.float32)
+    xs = np.arange(16.0, dtype=np.float32)
+    tj = JaxTarget(jax_model, (jnp.asarray(xs),),
+                   gj.C["y"].set(2.0) | gj.C["ys"].set(jnp.asarray(ys)))
+    tt = Target(port_model, (torch.as_tensor(xs),),
+                gt.C["y"].set(2.0) | gt.C["ys"].set(torch.as_tensor(ys)))
+    run_j = jax.jit(lambda key: JaxImportanceK(tj, k_particles=k).run_smc(key))
+    means = []
+    for seed in range(40):
+        key = jax.random.key(seed)
+        cj = run_j(key)
+        ct = ImportanceK(tt, k_particles=k).run_smc(_tkey(key))
+        np.testing.assert_allclose(ct.get_log_weights().numpy(),
+                                   np.asarray(cj.get_log_weights()),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(
+            ct.get_particles().get_choices()["m"].numpy(),
+            np.asarray(cj.get_particles().get_choices()["m"]), rtol=1e-5,
+            atol=1e-6)
+        res = ct.resample(_tkey(jax.random.key(1000 + seed)))
+        tr = res.get_particles()
+        assert tr.get_args()[0].shape == (k, 16)
+        assert torch.equal(tr.get_args()[0],
+                           torch.as_tensor(xs).expand(k, 16))
+        assert torch.equal(tr.get_retval(), torch.as_tensor(xs).expand(k, 16))
+        assert torch.equal(tr.get_choices()["ys"],
+                           torch.as_tensor(ys).expand(k, 16))
+        assert torch.equal(tr.get_choices()["y"],
+                           torch.full((k,), 2.0))
+        w = torch.softmax(ct.get_log_weights(), 0)
+        means.append(float((w * ct.get_particles().get_choices()["m"]).sum()))
+    # Exact posterior of m: precision 1 + 1 + 16/16 = 3. One run's
+    # self-normalized mean has an sd of about 0.2 at K = 8, so a 40-run
+    # average is within 0.1 of the truth at 3 sd (its O(1/K) bias is a
+    # few hundredths here).
+    exact = (2.0 + ys.sum() / 16.0) / 3.0
+    # Both K within 0.1 of the truth puts them within 0.2 of each other.
+    assert abs(np.mean(means) - exact) < 0.1, (np.mean(means), exact)
+
+
+@pytest.mark.parametrize("k", [8, 16])
+def test_importance_k_keeps_body_constants(k):
+    """A constant that the model body makes (``arange(16)``), mapped
+    through Vmap and returned: at K = 16 its length coincides with the
+    particle axis, and still every particle's lanes hold ``x_i ~ N(i, 1)``
+    and the constant comes back from ``resample`` unchanged. Weights and
+    lane draws equal the JAX package's on the same key data (1e-5)."""
+
+    def model(lib, xp):
+        @lib.gen
+        def lane(mu):
+            return lib.normal(mu, 1.0) @ "x"
+
+        @lib.gen
+        def m(_):
+            c = xp.arange(16.0)
+            mu = lib.normal(0.0, 1.0) @ "m"
+            lib.normal(mu, 1.0) @ "y"
+            lane.vmap()(c) @ "v"
+            return c
+
+        return m
+
+    tj = JaxTarget(model(gj, jnp), (0.0,), gj.C["y"].set(2.0))
+    tt = Target(model(gt, torch), (0.0,), gt.C["y"].set(2.0))
+    key = jax.random.key(7)
+    cj = jax.jit(lambda kk: JaxImportanceK(tj, k_particles=k).run_smc(kk))(
+        key)
+    ct = ImportanceK(tt, k_particles=k).run_smc(_tkey(key))
+    np.testing.assert_allclose(ct.get_log_weights().numpy(),
+                               np.asarray(cj.get_log_weights()),
+                               rtol=1e-5, atol=1e-5)
+    lanes = ct.get_particles().get_choices()["v", :, "x"]
+    assert lanes.shape == (k, 16)
+    np.testing.assert_allclose(
+        lanes.numpy(),
+        np.asarray(cj.get_particles().get_choices()["v", :, "x"]),
+        rtol=1e-5, atol=1e-5)
+    res = ct.resample(_tkey(jax.random.key(8))).get_particles()
+    assert torch.equal(res.get_retval(), torch.arange(16.0).expand(k, 16))
+    new = res.get_choices()["v", :, "x"]
+    # Every resampled particle is a whole row of the old ones.
+    assert bool((new[:, None, :] == lanes[None, :, :]).all(-1).any(-1).all())
+
+
 def test_csmc_keeps_the_retained_particle_last():
     model = E.quickstart_model()
     target = Target(model, (2.0, 2.0), gt.C["v"].set(True))
@@ -219,6 +339,8 @@ def test_port_imports_without_jax():
         "expand_adaptive\n"
         "import genjax_torch.core.scan, genjax_torch.models.hmm\n"
         "import genjax_torch.inference.exact_testbed\n"
+        "import genjax_torch.inference.smc_sampler, "
+        "genjax_torch.inference.mcmc, genjax_torch.lang.combinators\n"
         "import genjax_torch.lang.distributions.discrete_hmm\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or "
         "m.startswith('genjax_tpu') for m, v in sys.modules.items() "
