@@ -60,7 +60,21 @@ Phases (each prints one line; any failure exits non-zero):
      particles: the constrained generate's weight against the emission
      log-probabilities summed by hand, assess against the simulate score,
      and an IndexRequest(t, Regenerate(z)) against the Regenerate
-     identity.
+     identity;
+ 17. bench config 2 (NUTS on the conjugate regression, 2048 chains x 128
+     points, max_depth 6) through build_nuts_regression, its draws cut
+     to 200 warmup + 1000 samples (of 1600): split R-hat, the posterior
+     mean within 4 Monte Carlo standard errors of the closed form and
+     its sd within 10 %; eff-samples/s, chain-leapfrogs/s, ms and host
+     syncs a transition, a profiled short run's device-busy time, idle
+     share and device ops, the ops dispatched by module, peak memory;
+     and one transition on the card and on the CPU from the same keys;
+ 18. bench config 8 (NUTS on logistic regression, 1024 chains, N = 8192,
+     D = 512, max_depth 5, 100 + 100) through build_nuts_logreg: split
+     R-hat over the 512 coefficients, the sign-pattern separation, the
+     distance to a float64 Newton MAP; chain-leapfrogs/s, the likelihood
+     product's kernels and their time a leapfrog (two f32 GEMMs, TF32
+     off), idle share and peak memory.
 Each path's kernel launches are counted from 0 just before it runs. The
 last three lines are the card's line, the kernels' JSON record and the
 result line.
@@ -178,6 +192,27 @@ def ops_by_module(fn) -> dict:
     with Count():
         fn()
     return dict(by.most_common())
+
+
+def matrix_products(fn) -> dict:
+    """The matrix-product ops (``mm``, ``bmm``, ``matmul``, ...) that one
+    call of ``fn()`` dispatches, backward included: ``{op: count}``."""
+    import collections
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    by = collections.Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = str(func.overloadpacket)
+            if name.endswith(("mm", "matmul", "bmm", "addmv", "mv", "dot")):
+                by[name] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return dict(by)
 
 
 def threefry_bits(lib, seeds, n: int):
@@ -472,6 +507,270 @@ def hmm_phase(dev, card: str, n: int = 1 << 19, n_states: int = 64,
           f"(vs the simulate score {as_err:.3g} of its bound); peak device "
           f"memory {peak_gen:.1f} GB (generate + edit), {peak_sim:.1f} GB "
           f"(simulate + assess)", flush=True)
+
+
+def _regression_logdensity(device, n: int):
+    """Config 2's log-density of ``(slope, icept)`` positions ``(n, 2)`` on
+    ``device``, through ``assess`` of its model with lifted data."""
+    import genjax_torch as g
+    from genjax_torch import entry as E
+
+    xs, ys = E.regression_data(device)
+    model = E.regression_model()
+    args = (xs.expand(n, -1),)
+    obs = g.C["ys"].set(ys.expand(n, -1))
+
+    def logdensity(z):
+        chm = obs | g.C["slope"].set(z[..., 0]) | g.C["icept"].set(z[..., 1])
+        return model.assess(chm, args, batch=(n,))[0]
+
+    return logdensity
+
+
+def nuts_regression_phase(dev, card: str, zero_counts, counts) -> dict:
+    """Phase 17: bench config 2 at 2048 chains x 128 points, its samples
+    cut from 1600 to 1000."""
+    import torch
+
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+    from genjax_torch.inference import ess_autocorr, split_rhat
+    from genjax_torch.inference.requests import nuts as N
+
+    n_chains, depth, num_warmup, num_samples = 2048, 6, 200, 1000
+    run, target = E.build_nuts_regression(n_chains, num_warmup, num_samples,
+                                          depth)
+    check(target.args[0].is_cuda, "config 2: its data is not on the card")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    N.nuts_kernel.host_syncs = 0
+    t0 = time.perf_counter()
+    chms, infos = run(random.key(0, device=dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs, launches = N.nuts_kernel.host_syncs, counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(not any(launches.values()),
+          f"config 2 launched a kernel of another path: {launches}")
+    mean, cov = E.regression_exact_posterior()
+    sites = {}
+    for i, addr in enumerate(("slope", "icept")):
+        draws = chms[addr]
+        check(tuple(draws.shape) == (n_chains, num_samples)
+              and bool(torch.isfinite(draws).all()),
+              f"config 2: {addr} draws of shape {tuple(draws.shape)}")
+        rhat = float(split_rhat(draws))
+        ess = float(ess_autocorr(draws))
+        m, sd = float(draws.double().mean()), float(draws.double().std())
+        mcse = sd / math.sqrt(ess)
+        exact_sd = math.sqrt(cov[i, i])
+        sites[addr] = {"mean": m, "exact_mean": float(mean[i]), "sd": sd,
+                       "exact_sd": exact_sd, "rhat": rhat, "ess": ess,
+                       "mcse": mcse}
+        check(rhat <= 1.01, f"config 2: {addr} split R-hat {rhat}")
+        check(abs(m - mean[i]) <= 4 * mcse,
+              f"config 2: {addr} mean {m} vs closed form {mean[i]} "
+              f"(4 MCSE = {4 * mcse})")
+        check(abs(sd / exact_sd - 1) <= 0.10,
+              f"config 2: {addr} sd {sd} vs closed form {exact_sd}")
+    transitions = num_warmup + num_samples
+    leapfrogs = float(infos.num_steps.double().sum())
+    rate = {"eff_samples_per_s": sites["slope"]["ess"] / wall,
+            "chain_leapfrogs_per_s": leapfrogs / wall,
+            "ms_per_transition": wall / transitions * 1e3,
+            "syncs_per_transition": syncs / transitions,
+            "mean_tree_leapfrogs": leapfrogs / (n_chains * num_samples)}
+    # A short run at full width under the profiler: device-busy time,
+    # idle share and device ops a transition; the ops it dispatches by
+    # the port's module that issued them.
+    short, _ = E.build_nuts_regression(n_chains, 5, 5, depth)
+    p_wall, busy, per_kernel, ops, _ = profiled(
+        lambda: short(random.key(1, device=dev)), 1)
+    check(busy is not None, "config 2: the profiler saw no device time")
+    once, _ = E.build_nuts_regression(n_chains, 1, 1, depth)
+    mods = ops_by_module(lambda: once(random.key(2, device=dev)))
+    # One transition on the card and on the CPU from the same key data
+    # and start.
+    keys = random.split(random.key(5), n_chains)
+    z0 = (torch.tensor(mean, dtype=torch.float32)
+          + 0.05 * random.normal(random.key(6), (n_chains, 2)))
+    z_c, i_c = N.nuts_kernel(_regression_logdensity("cpu", n_chains), z0,
+                             keys, 0.02, max_depth=depth)
+    z_g, i_g = N.nuts_kernel(_regression_logdensity(dev, n_chains),
+                             z0.to(dev), keys.to(dev), 0.02, max_depth=depth)
+    same = (i_c.num_steps == i_g.num_steps.cpu()).numpy()
+    z_err = float(((z_g.cpu() - z_c).abs()
+                   / (1 + z_c.abs())).numpy()[same].max())
+    check(same.mean() >= 0.9, f"config 2: card vs CPU num_steps agree on "
+          f"{int(same.sum())} of {n_chains} chains")
+    out = {"chains": n_chains, "points": 128, "max_depth": depth,
+           "num_warmup": num_warmup, "num_samples": num_samples,
+           "cut": f"samples {num_samples} of 1600", "wall_s": wall,
+           **rate, "sites": sites, "profiled_transitions": 10,
+           "profiled_wall_ms": p_wall, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / p_wall,
+           "device_ops_per_transition": ops / 10,
+           "ops_by_module_per_transition": {k: v / 2 for k, v in
+                                            mods.items()},
+           "peak_gb": peak, "card_vs_cpu_num_steps_agree": int(same.sum()),
+           "card_vs_cpu_z_rel_err": z_err}
+    print(f"[17 config 2] {card}: NUTS {n_chains} chains x 128 points, "
+          f"max_depth {depth}, {num_warmup} warmup + {num_samples} samples "
+          f"(cut from 1600 samples to hold the phase near two minutes): wall "
+          f"{wall:.2f} s, {rate['eff_samples_per_s']:.6g} eff-samples/s "
+          f"(slope), {rate['chain_leapfrogs_per_s']:.6g} chain-leapfrogs/s "
+          f"(sampling leapfrogs / whole wall), "
+          f"{rate['ms_per_transition']:.3f} ms and "
+          f"{rate['syncs_per_transition']:.2f} host syncs a transition, "
+          f"{rate['mean_tree_leapfrogs']:.3f} leapfrogs a tree; "
+          + "; ".join(f"{a}: mean {v['mean']:.6f} vs {v['exact_mean']:.6f} "
+                      f"(4 MCSE {4 * v['mcse']:.3g}), sd {v['sd']:.5f} vs "
+                      f"{v['exact_sd']:.5f}, R-hat {v['rhat']:.5f}, ESS "
+                      f"{v['ess']:.6g}" for a, v in sites.items())
+          + f"; profiled 5 + 5 transitions: wall {p_wall:.1f} ms, device "
+          f"busy {busy:.2f} ms, idle share {out['idle_share']:.4f}, "
+          f"{ops / 10:.0f} device ops a transition; {top(per_kernel, 4)}; "
+          f"PyTorch ops dispatched a transition by module "
+          f"{out['ops_by_module_per_transition']}; peak device memory "
+          f"{peak:.2f} GB; one transition card vs CPU: num_steps agree on "
+          f"{int(same.sum())} of {n_chains} chains, z max rel diff where "
+          f"they agree {z_err:.3g}", flush=True)
+    return out
+
+
+def _newton_map(x, y, iters: int = 50):
+    """The MAP of config 8's posterior in float64 numpy (Newton)."""
+    import numpy as np
+
+    beta = np.zeros(x.shape[1])
+    for _ in range(iters):
+        p = 1.0 / (1.0 + np.exp(-(x @ beta)))
+        grad = x.T @ (y - p) - beta
+        hess = x.T @ (x * (p * (1 - p))[:, None]) + np.eye(x.shape[1])
+        step = np.linalg.solve(hess, grad)
+        beta = beta + step
+        if np.abs(step).max() < 1e-12:
+            break
+    return beta
+
+
+def nuts_logreg_phase(dev, card: str, zero_counts, counts) -> dict:
+    """Phase 18: bench config 8 at 1024 chains, N = 8192, D = 512."""
+    import numpy as np
+    import torch
+
+    import genjax_torch as g
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+    from genjax_torch.inference import split_rhat
+    from genjax_torch.inference.requests import nuts as N
+
+    n_chains, n, d, depth, warm, samp = 1024, 8192, 512, 5, 100, 100
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "config 8: TF32 matrix products are on")
+    run, target, _ = E.build_nuts_logreg(n_chains, warm, samp, n, d, depth)
+    x = target.args[0]
+    check(x.is_cuda and tuple(x.shape) == (n, d),
+          f"config 8: X of shape {tuple(x.shape)} on {x.device}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    N.nuts_kernel.host_syncs = 0
+    t0 = time.perf_counter()
+    chms, infos = run(random.key(2, device=dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs, launches = N.nuts_kernel.host_syncs, counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(not any(launches.values()),
+          f"config 8 launched a kernel of another path: {launches}")
+    beta = chms["beta"]
+    check(tuple(beta.shape) == (n_chains, samp, d)
+          and bool(torch.isfinite(beta).all()),
+          f"config 8: beta draws of shape {tuple(beta.shape)}")
+    rhat = float(split_rhat(beta).max())
+    post = beta.double().mean(dim=(0, 1)).cpu().numpy()
+    sep = float(post[: d // 8].mean() - np.abs(post[d // 8:]).mean())
+    y = target.constraint["y"].double().cpu().numpy()
+    beta_map = _newton_map(x.double().cpu().numpy(), y)
+    map_rel = float(np.linalg.norm(post - beta_map)
+                    / np.linalg.norm(beta_map))
+    check(rhat <= 1.05, f"config 8: max split R-hat {rhat}")
+    check(sep > 0, f"config 8: posterior_sep {sep}")
+    leapfrogs = float(infos.num_steps.double().sum())
+    transitions = warm + samp
+    # The likelihood product: one value-and-gradient (what a leapfrog
+    # costs) under the profiler, its GEMMs by name.
+    model = E.logreg_model(d)
+    lifted = (x.expand(n_chains, -1, -1),)
+    obs = g.C["y"].set(target.constraint["y"].expand(n_chains, -1))
+    vg = N.value_and_grad(lambda z: model.assess(
+        obs | g.C["beta"].set(z), lifted, batch=(n_chains,))[0])
+    z = beta[:, -1].contiguous()
+    reps = 20
+    lf_wall, lf_busy, lf_kernels, _, _ = profiled(lambda: vg(z), reps)
+    gemms = {k: v for k, v in lf_kernels.items() if "gemm" in k.lower()}
+    gemm_ms = sum(gemms.values())
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            vg(z)
+        torch.cuda.synchronize()
+    # The profiler now and then misses a kernel, so the products are
+    # counted where they are dispatched: one matrix product each way.
+    gemm_launches = sum(e.count for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and "gemm" in e.key.lower()) / reps
+    products = matrix_products(lambda: vg(z))
+    check(products == {"aten.mm": 2}, f"config 8: one value and gradient "
+          f"dispatched the products {products}, not one mm each way")
+    # Two products of 2·N·D·chains operations each.
+    gemm_bound, gemm_by = bound(4.0 * (n * d + 2 * n_chains * (n + d)),
+                                2 * 2.0 * n * d * n_chains)
+    short, _, _ = E.build_nuts_logreg(n_chains, 3, 3, n, d, depth)
+    p_wall, busy, per_kernel, ops, _ = profiled(
+        lambda: short(random.key(3, device=dev)), 1)
+    check(busy is not None, "config 8: the profiler saw no device time")
+    out = {"chains": n_chains, "n": n, "d": d, "max_depth": depth,
+           "num_warmup": warm, "num_samples": samp, "wall_s": wall,
+           "chain_leapfrogs_per_s": leapfrogs / wall,
+           "ms_per_transition": wall / transitions * 1e3,
+           "syncs_per_transition": syncs / transitions,
+           "mean_tree_leapfrogs": leapfrogs / (n_chains * samp),
+           "max_rhat": rhat, "posterior_sep": sep,
+           "map_rel_distance": map_rel,
+           "leapfrog_value_and_grad_ms": lf_wall,
+           "leapfrog_device_ms": lf_busy, "product_kernels_ms": gemms,
+           "product_launches_per_leapfrog": gemm_launches,
+           "products_dispatched_per_leapfrog": products,
+           "product_ms_per_leapfrog": gemm_ms, "product_bound_ms": gemm_bound,
+           "product_bound_by": gemm_by,
+           "profiled_transitions": 6, "profiled_wall_ms": p_wall,
+           "device_busy_ms": busy, "idle_share": 1.0 - busy / p_wall,
+           "device_ops_per_transition": ops / 6, "peak_gb": peak}
+    gemm_names = ", ".join(f"{k[:60]}: {v:.4f} ms" for k, v in gemms.items())
+    print(f"[18 config 8] {card}: NUTS {n_chains} chains, X {n} x {d}, "
+          f"max_depth {depth}, {warm} + {samp}: wall {wall:.2f} s, "
+          f"{out['chain_leapfrogs_per_s']:.6g} chain-leapfrogs/s (sampling "
+          f"leapfrogs / whole wall), {out['ms_per_transition']:.2f} ms and "
+          f"{out['syncs_per_transition']:.2f} host syncs a transition, "
+          f"{out['mean_tree_leapfrogs']:.3f} leapfrogs a tree; max split "
+          f"R-hat {rhat:.4f} (bound 1.05), posterior_sep {sep:.4f}, "
+          f"posterior mean vs float64 Newton MAP rel distance "
+          f"{map_rel:.4f}; one leapfrog's value and gradient: wall "
+          f"{lf_wall:.3f} ms, device {lf_busy:.4f} ms, the product's "
+          f"kernels {{{gemm_names}}} ({gemm_launches} launches a call seen "
+          f"by the profiler over {reps} calls; dispatched {products}) "
+          f"= {gemm_ms:.4f} ms a leapfrog (bound {gemm_bound:.4f} ms by "
+          f"{gemm_by}, f32 without TF32); profiled 3 + 3 transitions: wall "
+          f"{p_wall:.1f} ms, device busy {busy:.2f} ms, idle share "
+          f"{out['idle_share']:.4f}, {ops / 6:.0f} device ops a transition; "
+          f"peak device memory {peak:.2f} GB", flush=True)
+    return out
 
 
 def main() -> int:
@@ -1253,6 +1552,10 @@ def main() -> int:
     # -- 16. hmm_model through Scan at 64 x 64 x 2^19 -----------------------
     hmm_phase(dev, card)
 
+    # -- 17-18. gradient MCMC: configs 2 and 8 ------------------------------
+    nuts = {"config_2": nuts_regression_phase(dev, card, zero_counts, counts),
+            "config_8": nuts_logreg_phase(dev, card, zero_counts, counts)}
+
     lm_main = lm_rows[s_hmm]
     record = {"kernels": [
         {"name": "cdf_counts", "route": "cuda",
@@ -1320,7 +1623,7 @@ def main() -> int:
                      "particle_rung_moves_per_s": rates["build_tempered_smc"],
                      "device_busy_ms": dbusy, "idle_share": idle6,
                      "peak_gb": peak6, "ops_by_module": mods6},
-        "edits": c6_edit}
+        "edits": c6_edit, "nuts": nuts}
     print(card, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

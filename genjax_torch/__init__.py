@@ -3,11 +3,13 @@ H100, slice by slice. Ported so far: the main path (the ``@gen``
 language, the GFI data types, importance sampling / SIR and particle
 filtering with systematic resampling), the discrete-HMM slice (the
 exact ``DiscreteHMM`` posterior with its parallel-prefix filter, the
-exact testbed, the HMM bootstrap filter), and the edits slice (the five
+exact testbed, the HMM bootstrap filter), the edits slice (the five
 GFI methods with ``edit``, the Vmap / repeat and Scan combinators, MH and
-the tempered SMC samplers), with every kernel of the JAX package written
-by hand for Hopper (``ops/``). The package imports
-``torch`` and never ``jax``.
+the tempered SMC samplers) and gradient MCMC (HMC, MALA, NUTS with
+cross-chain adaptation, elliptical slice, support transforms,
+diagnostics; bench configs 2 and 8 in ``entry``), with every kernel of
+the JAX package written by hand for Hopper (``ops/``). The package
+imports ``torch`` and never ``jax``.
 """
 
 from genjax_torch.core.compiler.interpreters.incremental import (
@@ -74,6 +76,30 @@ from genjax_torch.lang.combinators import (
 )
 from genjax_torch.core import random  # noqa: E402
 from genjax_torch import inference, ops  # noqa: E402,F401
+from genjax_torch.inference import (  # noqa: E402
+    HMC,
+    MALA,
+    NUTS,
+    EllipticalSlice,
+    Rejuvenate,
+    ess_autocorr,
+    nuts_kernel,
+    run_nuts,
+    split_rhat,
+)
+
+#: Entry points of ``genjax_torch.entry`` reachable from the package
+#: (``entry`` imports the package, so they load on first use).
+_ENTRY_POINTS = ("build_nuts_regression", "build_nuts_logreg")
+
+
+def __getattr__(name):
+    if name in _ENTRY_POINTS:
+        from genjax_torch import entry
+
+        return getattr(entry, name)
+    raise AttributeError(f"module 'genjax_torch' has no attribute {name!r}")
+
 
 #: ``S``: the selection builder.
 S = Selection
@@ -92,19 +118,24 @@ __all__ = [
     "Diff",
     "DiffAnnotate",
     "EditRequest",
+    "EllipticalSlice",
     "EmptyRequest",
     "FlagOp",
     "Fn",
     "GenerativeFunction",
     "GenerativeFunctionClosure",
+    "HMC",
     "IndexRequest",
+    "MALA",
     "Mask",
     "MissingAddress",
+    "NUTS",
     "NoChange",
     "NotSupportedEditRequest",
     "PrimitiveEditRequest",
     "Pytree",
     "Regenerate",
+    "Rejuvenate",
     "Retdiff",
     "S",
     "Scan",
@@ -118,17 +149,23 @@ __all__ = [
     "Vmap",
     "Weight",
     "accumulate",
+    "build_nuts_logreg",
+    "build_nuts_regression",
     "empty_trace",
+    "ess_autocorr",
     "gen",
     "inference",
     "iterate",
     "iterate_final",
     "multi_switch",
+    "nuts_kernel",
     "ops",
     "random",
     "reduce",
     "repeat",
+    "run_nuts",
     "scan",
+    "split_rhat",
     "tree_choose",
     "vmap",
     *_dist_all,

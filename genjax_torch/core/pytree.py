@@ -10,6 +10,7 @@ calls its function on ``None``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Generic, TypeVar
 
 import torch
@@ -26,6 +27,8 @@ __all__ = [
     "tree_leaves",
     "tree_flatten",
     "tree_unflatten",
+    "ravel_pytree",
+    "event_sum",
 ]
 
 
@@ -168,3 +171,49 @@ class Closure(Pytree, Generic[R]):
     def __call__(self, *args, **kwargs) -> R:
         return self.fn(*self.dyn_args, *args, **kwargs)
 
+
+def ravel_pytree(tree: Any, batch_rank: int = 0):
+    """The batched counterpart of ``jax.flatten_util.ravel_pytree``: every
+    tensor leaf ``B + event`` (``batch_rank`` leading batch axes) is
+    flattened behind the batch and the leaves are concatenated, in JAX's
+    leaf order, into one ``B + (D,)`` tensor of their promoted dtype.
+    Returns ``(flat, unravel)``; ``unravel(z)`` takes any ``B' + (D,)``
+    and gives the tree back with leaves ``B' + event`` in their own
+    dtypes."""
+    leaves, spec = tpu_tree.tree_flatten(tree)
+    tensors = [v for v in leaves if v is not None]
+    if not all(isinstance(v, torch.Tensor) for v in tensors):
+        raise TypeError("ravel_pytree: every leaf must be a tensor")
+    if not tensors:
+        raise ValueError("ravel_pytree: the tree has no tensor leaves")
+    batch = tuple(tensors[0].shape[:batch_rank])
+    dtype = tensors[0].dtype
+    for v in tensors[1:]:
+        dtype = torch.promote_types(dtype, v.dtype)
+    events = [tuple(v.shape[batch_rank:]) for v in tensors]
+    sizes = [math.prod(e) for e in events]
+    flat = torch.cat([v.to(dtype).reshape(batch + (n,))
+                      for v, n in zip(tensors, sizes)], dim=-1)
+    dtypes = [v.dtype for v in tensors]
+
+    def unravel(z: torch.Tensor):
+        lead = tuple(z.shape[:-1])
+        parts = iter(zip(torch.split(z, sizes, dim=-1), events, dtypes))
+        out = []
+        for v in leaves:
+            if v is None:
+                out.append(None)
+                continue
+            part, event, dt = next(parts)
+            out.append(part.reshape(lead + event).to(dt))
+        return tpu_tree.tree_unflatten(out, spec)
+
+    return flat, unravel
+
+
+def event_sum(x: torch.Tensor, batch_rank: int) -> torch.Tensor:
+    """``x`` summed over everything behind its ``batch_rank`` leading
+    (batch) axes; ``x`` itself when there is nothing behind them."""
+    if x.ndim <= batch_rank:
+        return x
+    return x.sum(dim=tuple(range(batch_rank, x.ndim)))

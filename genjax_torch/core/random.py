@@ -215,13 +215,13 @@ def categorical(k: torch.Tensor, logits, shape=None) -> torch.Tensor:
 
 def event_shape(k: torch.Tensor, *params) -> tuple:
     """The per-key draw shape for parameters ``params``: their broadcast
-    shape, with the key batch stripped from its front when it is there."""
+    shape behind the key batch. Every tensor parameter of a batched draw
+    leads with the batch (``gfi/gfn.py``), so the batch rank is the
+    key's, never read from a length; a 0-d parameter or a Python number
+    is the same for every key."""
     shp = torch.broadcast_shapes(*(tuple(np.shape(p)) if not isinstance(
         p, torch.Tensor) else tuple(p.shape) for p in params))
-    batch = tuple(k.shape[:-1])
-    if batch and tuple(shp[:len(batch)]) == batch:
-        return tuple(shp[len(batch):])
-    return tuple(shp)
+    return tuple(shp[k.ndim - 1:])
 
 
 #: Rejection rounds before :func:`loggamma` gives up; one round accepts

@@ -21,7 +21,14 @@
   model, with the closed-form log Z (counterpart of
   ``benchmarks/run_all.py::config6_tempered``);
 - :func:`build_hmm_model`: the ``Scan``-combinator HMM ``hmm_model`` on
-  config 3's circulant configuration, its observations constrained.
+  config 3's circulant configuration, its observations constrained;
+- :func:`build_nuts_regression`: bench config 2, NUTS with cross-chain
+  adaptation on a conjugate linear regression, whose posterior is the
+  closed form :func:`regression_exact_posterior` (counterpart of
+  ``benchmarks/run_all.py::config2_nuts``);
+- :func:`build_nuts_logreg`: bench config 8, NUTS on a Bayesian logistic
+  regression over an 8192 x 512 design matrix (counterpart of
+  ``benchmarks/run_all.py::config8_mxu_logreg``).
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (or another device); without a card it raises rather
@@ -40,7 +47,7 @@ import torch
 
 import genjax_torch as g
 from genjax_torch.core import random
-from genjax_torch.inference import ImportanceK, Target
+from genjax_torch.inference import ImportanceK, Target, run_nuts
 from genjax_torch.inference.exact_testbed import sample_problem
 from genjax_torch.inference.pf import fused_particle_filter, particle_filter
 from genjax_torch.inference.smc_sampler import tempered_smc
@@ -73,6 +80,13 @@ __all__ = [
     "tempered_exact_log_z",
     "build_tempered_smc",
     "build_hmm_model",
+    "regression_model",
+    "regression_data",
+    "regression_exact_posterior",
+    "build_nuts_regression",
+    "logreg_model",
+    "logreg_data",
+    "build_nuts_logreg",
 ]
 
 
@@ -362,3 +376,117 @@ def build_hmm_model(n_states: int = 64, n_steps: int = 64,
         return model.generate(random.split(key, n_particles), constraint, ())
 
     return generate, model, constraint, problem
+
+
+#: Config 2's data: ``n`` points on [-1, 1], noise sd, prior sd.
+REGRESSION_POINTS, REGRESSION_NOISE, REGRESSION_PRIOR_SD = 128, 0.2, 2.0
+
+
+def regression_model():
+    """Config 2's model: ``slope, icept ~ normal(0, 2)``, ``ys ~
+    mv_normal_diag(slope·xs + icept, 0.2)``. Under a chain batch the
+    slope and the intercept have the batch's shape and ``xs`` leads with
+    it, so each gains the points' axis behind it."""
+
+    @g.gen
+    def regression(xs):
+        slope = g.normal(0.0, REGRESSION_PRIOR_SD) @ "slope"
+        icept = g.normal(0.0, REGRESSION_PRIOR_SD) @ "icept"
+        _ = g.mv_normal_diag(slope[..., None] * xs + icept[..., None],
+                             REGRESSION_NOISE * torch.ones_like(xs)) @ "ys"
+
+    return regression
+
+
+def regression_data(device=None):
+    """Config 2's data: ``xs = linspace(-1, 1, 128)``, ``ys = 2·xs − 0.5``."""
+    xs = torch.linspace(-1.0, 1.0, REGRESSION_POINTS, device=_device(device))
+    return xs, 2.0 * xs - 0.5
+
+
+def regression_exact_posterior(xs=None, ys=None):
+    """The closed-form posterior of config 2's conjugate model, float64:
+    ``(mean, cov)`` over ``(slope, icept)``, with precision ``I/4 +
+    AᵀA/0.04`` and ``A = [xs, 1]``."""
+    if xs is None:
+        xs, ys = regression_data("cpu")
+    x = np.asarray(torch.as_tensor(xs).cpu(), np.float64)
+    y = np.asarray(torch.as_tensor(ys).cpu(), np.float64)
+    a = np.stack([x, np.ones_like(x)], axis=1)
+    noise_var = REGRESSION_NOISE ** 2
+    precision = np.eye(2) / REGRESSION_PRIOR_SD ** 2 + a.T @ a / noise_var
+    cov = np.linalg.inv(precision)
+    return cov @ (a.T @ y / noise_var), cov
+
+
+def build_nuts_regression(n_chains: int = 2048, num_warmup: int = 200,
+                          num_samples: int = 1600, max_depth: int = 6,
+                          device=None):
+    """Bench config 2: ``run_nuts`` on :func:`regression_model` with
+    :func:`regression_data`. Returns ``(run, target)``: ``run(key) ->
+    (choices, infos)``, the draws leading with ``(chains, samples)``."""
+    xs, ys = regression_data(device)
+    target = Target(regression_model(), (xs,), g.C["ys"].set(ys))
+
+    def run(key):
+        return run_nuts(target, key, n_chains=n_chains,
+                        num_warmup=num_warmup, num_samples=num_samples,
+                        max_depth=max_depth)
+
+    return run, target
+
+
+def _shared_matvec(x: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """``x @ beta`` per execution, ``x`` of shape ``B + (N, D)`` and
+    ``beta`` of ``B + (D,)``. A lifted ``x`` (zero strides on its batch
+    axes, the same matrix in every execution) is read once: the product
+    is one ``(B, D) x (D, N)`` matrix product, and its gradient another,
+    instead of a copy of ``x`` for every execution or ``B``
+    matrix-vector products."""
+    r = x.ndim - 2
+    if r and all(x.stride(i) == 0 for i in range(r)):
+        return beta @ x[(0,) * r].mT
+    return (x @ beta[..., None])[..., 0]
+
+
+def logreg_model(d: int):
+    """Config 8's model: ``beta ~ mv_normal_diag(0, 1)`` over ``d``
+    coefficients, ``y ~ bernoulli(X @ beta)`` (logits)."""
+
+    @g.gen
+    def logreg(x):
+        beta = g.mv_normal_diag(torch.zeros(d, device=x.device),
+                                torch.ones(d, device=x.device)) @ "beta"
+        _ = g.bernoulli(_shared_matvec(x, beta)) @ "y"
+
+    return logreg
+
+
+def logreg_data(n: int = 8192, d: int = 512, device=None):
+    """Config 8's data: ``X = normal(key 0, (n, d)) / sqrt(d)``,
+    ``beta_true`` 1.5 on the first ``d/8`` coefficients and 0 elsewhere,
+    ``y = bernoulli(key 1, sigmoid(X @ beta_true))``. Returns ``(X, y,
+    beta_true)``."""
+    dev = _device(device)
+    x = random.normal(random.key(0, device=dev), (n, d)) / math.sqrt(d)
+    beta_true = torch.where(torch.arange(d, device=dev) < d // 8, 1.5, 0.0)
+    y = random.bernoulli(random.key(1, device=dev),
+                         torch.sigmoid(x @ beta_true), (n,))
+    return x, y.to(torch.float32), beta_true
+
+
+def build_nuts_logreg(n_chains: int = 1024, num_warmup: int = 100,
+                      num_samples: int = 100, n: int = 8192, d: int = 512,
+                      max_depth: int = 5, device=None):
+    """Bench config 8: ``run_nuts`` on :func:`logreg_model` with
+    :func:`logreg_data`. Returns ``(run, target, beta_true)``:
+    ``run(key) -> (choices, infos)``."""
+    x, y, beta_true = logreg_data(n, d, device)
+    target = Target(logreg_model(d), (x,), g.C["y"].set(y))
+
+    def run(key):
+        return run_nuts(target, key, n_chains=n_chains,
+                        num_warmup=num_warmup, num_samples=num_samples,
+                        max_depth=max_depth)
+
+    return run, target, beta_true

@@ -6,8 +6,10 @@ Every tensor is concrete in eager PyTorch, so a dynamic-index lookup on
 an :class:`Indexed` node with a Python-int address folds to a plain
 slice; a tensor address lowers to ``argmax`` + gather + mask as in JAX.
 Under a key batch the lane axis of an :class:`Indexed` node sits behind
-the batch axes, at the node's ``batch_rank``. ``lanes_leading`` and
-``partition_values`` serve the gradient samplers and are not ported yet.
+the batch axes, at the node's ``batch_rank``. ``partition_values``
+serves the gradient samplers. The JAX package's ``lanes_leading`` has no
+counterpart: a choice map rebuilt under more batch axes records them in
+each ``Indexed`` node's ``batch_rank`` instead of moving axes.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ __all__ = [
     "C",
     "Indexed",
     "lift_values",
+    "partition_values",
 ]
 
 
@@ -559,6 +562,52 @@ class Filtered(ChoiceMap):
     def get_inner_map(self, comp) -> ChoiceMap:
         sub = self.inner.get_inner_map(comp)
         return sub.filter(self.selection.get_subselection(comp))
+
+
+def partition_values(chm: ChoiceMap):
+    """Split ``chm`` into ``(values, rebuild)``: ``values`` holds only the
+    :class:`Choice` payloads (what a gradient sampler may move), and
+    ``rebuild(new_values, extra=0)`` puts an identically structured
+    choice map around new ones. Structural leaves (``Switch`` indices,
+    ``Mask`` flags, ``Filtered`` selections, explicit ``Indexed``
+    addresses) stay in the closure, out of a sampler's position vector.
+    ``extra`` counts batch axes that the new values carry in front of
+    the old ones (a sampler's draws axis): each ``Indexed`` node records
+    them in its ``batch_rank``."""
+    if isinstance(chm, Choice):
+        v = chm.v
+        if isinstance(v, Mask):
+            flag = v.flag
+            return v.value, lambda nv, extra=0: Choice(Mask(nv, flag))
+        return v, lambda nv, extra=0: Choice(nv)
+    if isinstance(chm, Empty):
+        return (), lambda nv, extra=0: chm
+    if isinstance(chm, Static):
+        parts = [partition_values(sub) for sub in chm.submaps]
+        keys = chm.keys
+        return tuple(p[0] for p in parts), lambda nvs, extra=0: Static(
+            tuple(p[1](nv, extra) for p, nv in zip(parts, nvs)), keys)
+    if isinstance(chm, Or):
+        lv, lr = partition_values(chm.left)
+        rv, rr = partition_values(chm.right)
+        return (lv, rv), lambda nvs, extra=0: Or(lr(nvs[0], extra),
+                                                 rr(nvs[1], extra))
+    if isinstance(chm, Indexed):
+        iv, ir = partition_values(chm.inner)
+        idx, n, rank = chm.idx, chm.n, chm.batch_rank
+        return iv, lambda nv, extra=0: Indexed(ir(nv, extra), idx, n,
+                                               rank + extra)
+    if isinstance(chm, Switch):
+        parts = [partition_values(b) for b in chm.branches]
+        idx = chm.idx
+        return tuple(p[0] for p in parts), lambda nvs, extra=0: Switch(
+            idx, tuple(p[1](nv, extra) for p, nv in zip(parts, nvs)))
+    if isinstance(chm, Filtered):
+        iv, ir = partition_values(chm.inner)
+        sel = chm.selection
+        return iv, lambda nv, extra=0: Filtered(ir(nv, extra), sel)
+    raise NotImplementedError(
+        f"partition_values through {type(chm).__name__} nodes.")
 
 
 @Pytree.dataclass

@@ -14,14 +14,33 @@ from typing import Any, Generic, TypeVar
 import torch
 
 from genjax_torch.core.compiler.interpreters.incremental import Diff
-from genjax_torch.core.pytree import Pytree
+from genjax_torch.core.pytree import Pytree, tree_leaves
 from genjax_torch.gfi.choice_map import ChoiceMap
 from genjax_torch.gfi.concepts import Argdiffs, EditRequest
 from genjax_torch.gfi.selection import Selection
 
 R = TypeVar("R")
 
-__all__ = ["Trace", "GenerativeFunction", "GenerativeFunctionClosure"]
+__all__ = ["Trace", "GenerativeFunction", "GenerativeFunctionClosure",
+           "check_batch_args"]
+
+
+def check_batch_args(args: tuple, batch: tuple) -> None:
+    """Refuse a tensor argument of a call on the batch ``batch`` that
+    does not lead with it. A 0-d tensor and a Python number are the same
+    in every execution; a choice map passed as an argument (a proposal's
+    view of the old choices) is checked by the calls it reaches."""
+    batch = tuple(batch)
+    if not batch:
+        return
+    for v in tree_leaves(args, is_leaf=lambda x: isinstance(x, ChoiceMap)):
+        if (isinstance(v, torch.Tensor) and v.ndim
+                and tuple(v.shape[:len(batch)]) != batch):
+            raise ValueError(
+                f"a tensor argument of shape {tuple(v.shape)} under the "
+                f"batch {batch}: every tensor argument of a batched call "
+                "leads with the batch (lift a shared one with "
+                "v.expand(batch + v.shape))")
 
 
 class Trace(Pytree, Generic[R]):
@@ -107,9 +126,12 @@ class GenerativeFunction(Pytree, Generic[R]):
       ``B + (n, 2)``, traces ``B + (n,) + ...``, and the ``Indexed``
       choice maps it builds record ``batch_rank = len(B)``.
 
-    Distributions alone are lenient: a parameter that does not lead with
-    ``B`` broadcasts from the right against ``B + event``, shared by
-    every execution."""
+    A batched ``@gen`` or distribution call at top level (no ``@gen``
+    body running) refuses a tensor argument that does not lead with
+    ``B`` (:func:`check_batch_args`), so that no argument is taken as
+    shared or per-execution by its length. Inside a body the handler
+    has lifted the constants already, and a distribution's draw and
+    log-density take the batch rank from the key."""
 
     @abc.abstractmethod
     def simulate(self, key, args: tuple) -> Trace[R]:

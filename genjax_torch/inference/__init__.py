@@ -1,7 +1,33 @@
-"""Inference: targets, importance sampling / SIR, particle filters, MH
-and the tempered SMC samplers."""
+"""Inference: targets, importance sampling / SIR, particle filters, MH,
+the tempered SMC samplers, and gradient MCMC (HMC, MALA, NUTS with
+cross-chain adaptation, elliptical slice, support transforms and
+diagnostics)."""
 
+from genjax_torch.inference.adaptation import run_nuts, warmup_chains
+from genjax_torch.inference.diagnostics import (
+    ess_autocorr,
+    split_rhat,
+    summarize,
+)
 from genjax_torch.inference.mcmc import chain, mh, multi_chain
+from genjax_torch.inference.requests import (
+    HMC,
+    MALA,
+    NUTS,
+    EllipticalSlice,
+    Rejuvenate,
+    SafeHMC,
+    elliptical_slice_kernel,
+    nuts_kernel,
+    selection_gradient,
+)
+from genjax_torch.inference.transforms import (
+    Bijector,
+    constrain_choices,
+    interval,
+    positive,
+    unconstrain_choices,
+)
 
 from genjax_torch.inference.pf import (
     FilterState,
@@ -38,6 +64,25 @@ from genjax_torch.inference.sp import (
 
 __all__ = [
     "Algorithm",
+    "Bijector",
+    "EllipticalSlice",
+    "HMC",
+    "MALA",
+    "NUTS",
+    "Rejuvenate",
+    "SafeHMC",
+    "constrain_choices",
+    "elliptical_slice_kernel",
+    "ess_autocorr",
+    "interval",
+    "nuts_kernel",
+    "positive",
+    "run_nuts",
+    "selection_gradient",
+    "split_rhat",
+    "summarize",
+    "unconstrain_choices",
+    "warmup_chains",
     "FilterState",
     "Importance",
     "ImportanceK",

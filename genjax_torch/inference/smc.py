@@ -183,6 +183,15 @@ def _particle_leaves(tree, k: int, device):
     return tree_map(lift, tree)
 
 
+def lift_target(target: Target, k: int, device) -> Target:
+    """``target`` with its tensor arguments and constraint values lifted
+    to ``k`` executions as zero-stride views."""
+    args = tree_map(lambda v: _lift_to(v, k, device)
+                    if isinstance(v, torch.Tensor) else v, target.args)
+    return Target(target.p, args,
+                  lift_values(target.constraint, (k,), device))
+
+
 def batched_importance(target: Target, keys, chm: ChoiceMap):
     """``target.importance`` on a batch of ``K`` keys ``(K, 2)``: the
     target's arguments and constraint values (and ``chm``'s) are lifted
@@ -190,10 +199,8 @@ def batched_importance(target: Target, keys, chm: ChoiceMap):
     traces has the particle axis (:func:`_particle_leaves`). Returns
     ``(traces, weights)``."""
     k = keys.shape[0]
-    args = tree_map(lambda v: _lift_to(v, k, keys.device)
-                    if isinstance(v, torch.Tensor) else v, target.args)
-    constraint = lift_values(target.constraint | chm, (k,), keys.device)
-    trs, ws = target.p.generate(keys, constraint, args)
+    lifted = lift_target(target, k, keys.device)
+    trs, ws = lifted.importance(keys, lift_values(chm, (k,), keys.device))
     return (_particle_leaves(trs, k, keys.device),
             torch.as_tensor(ws, device=keys.device).expand(k))
 

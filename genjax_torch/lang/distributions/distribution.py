@@ -21,13 +21,14 @@ import torch
 from genjax_torch.core import random
 from genjax_torch.core.compiler.interpreters.incremental import Diff
 from genjax_torch.core.compiler.staging import FlagOp, tree_where
-from genjax_torch.core.pytree import Pytree
+from genjax_torch.core.pytree import Pytree, event_sum
 from genjax_torch.gfi.choice_map import ChoiceMap
 from genjax_torch.gfi.concepts import Argdiffs, EditRequest, Score
 from genjax_torch.gfi.gfn import GenerativeFunction, Trace
 from genjax_torch.gfi.mask import Mask
 from genjax_torch.gfi.requests import Regenerate, Update
 from genjax_torch.gfi.selection import Selection
+from genjax_torch.lang.static import check_top_level_args
 
 __all__ = [
     "Distribution",
@@ -102,6 +103,7 @@ class Distribution(GenerativeFunction[Any]):
         return None
 
     def simulate(self, key, args: tuple) -> DistributionTrace:
+        check_top_level_args(args, _batch(key))
         score, v = self.random_weighted(key, *args)
         return DistributionTrace(self, args, v, score)
 
@@ -113,6 +115,7 @@ class Distribution(GenerativeFunction[Any]):
             )
         if isinstance(v, Mask):
             v = v.value
+        check_top_level_args(args, tuple(batch))
         # assess is keyless: exact densities ignore the key entirely, and
         # a fixed key of the batch's shape says which axes are the batch.
         key = random.key(0).expand(tuple(batch) + (2,))
@@ -120,6 +123,7 @@ class Distribution(GenerativeFunction[Any]):
         return score, v
 
     def generate(self, key, constraint: ChoiceMap, args: tuple):
+        check_top_level_args(args, _batch(key))
         cv = self._constraint_value(constraint)
         if cv is None:
             return self.simulate(key, args), _zeros(key)
@@ -153,6 +157,7 @@ class Distribution(GenerativeFunction[Any]):
     def edit(self, key, trace: DistributionTrace, request: EditRequest,
              argdiffs: Argdiffs):
         args = Diff.tree_primal(argdiffs)
+        check_top_level_args(args, _batch(key))
         no_change = Diff.static_check_no_change(argdiffs)
         if isinstance(request, Update):
             return self._edit_update(key, trace, request.constraint, args,
@@ -248,15 +253,24 @@ class ExactDensity(Distribution):
     def estimate_logpdf(self, key, v, *args):
         return self._logpdf_sum(v, *args, batch=_batch(key))
 
+    #: The rank of one value (1 for a vector-valued distribution): a
+    #: value with fewer axes behind the batch is refused, since a length
+    #: cannot tell a per-execution axis from an event axis.
+    event_rank: int = 0
+
     def _logpdf_sum(self, v, *args, batch: tuple = ()) -> Score:
-        lp = torch.as_tensor(self.logpdf(v, *args))
-        if batch and tuple(lp.shape[:len(batch)]) == batch:
-            dims = tuple(range(len(batch), lp.ndim))
-            return lp.sum(dim=dims) if dims else lp
-        lp = lp.sum() if lp.ndim > 0 else lp
-        # Shared by every execution (a constant value under constant
-        # parameters): one score per key all the same.
-        return lp.expand(batch) if batch else lp
+        # The batch rank is the key's: every tensor parameter leads with
+        # the batch, so the dimensions behind it are the event's. A
+        # log-density without them (a constant value under constant
+        # parameters) is one score per key all the same.
+        r = len(batch)
+        if self.event_rank and torch.as_tensor(v).ndim < r + self.event_rank:
+            raise ValueError(
+                f"{self!r}: a value of shape {tuple(torch.as_tensor(v).shape)}"
+                f" under the batch {tuple(batch)} has no event axis behind "
+                "it (lift a shared parameter with v.expand(batch + v.shape))")
+        lp = event_sum(torch.as_tensor(self.logpdf(v, *args)), r)
+        return lp.expand(batch) if r else lp
 
     def iid(self, sample_shape) -> "IIDBlock":
         """``sample_shape`` iid draws of this distribution as one choice,
@@ -320,6 +334,7 @@ class ExactDensityFromCallables(ExactDensity):
     logpdf_fn: Callable = Pytree.static()
     name: str = Pytree.static(default="exact_density")
     support: Any = Pytree.static(default=None)
+    event_rank: int = Pytree.static(default=0)
 
     def sample(self, key, *args):
         return self.sampler(key, *args)
@@ -338,9 +353,12 @@ class ExactDensityFromCallables(ExactDensity):
 
 def exact_density(sample: Callable, logpdf: Callable,
                   name: str = "exact_density",
-                  support: Any = None) -> ExactDensityFromCallables:
+                  support: Any = None,
+                  event_rank: int = 0) -> ExactDensityFromCallables:
     """Build an :class:`ExactDensity` from a sampler and a log-density.
     ``sample(key, *params)`` draws one value per key of the key batch;
     ``support`` is the support metadata (a string, a tuple, or a callable
-    of the parameters) that gradient samplers read."""
-    return ExactDensityFromCallables(sample, logpdf, name, support)
+    of the parameters) that gradient samplers read; ``event_rank`` is the
+    rank of one value."""
+    return ExactDensityFromCallables(sample, logpdf, name, support,
+                                     event_rank)

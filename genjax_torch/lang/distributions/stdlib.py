@@ -186,4 +186,4 @@ def _mvn_diag_logpdf(v, loc, scale_diag):
 
 #: MultivariateNormalDiag(loc, scale_diag).
 mv_normal_diag = exact_density(_mvn_diag_sample, _mvn_diag_logpdf,
-                               "mv_normal_diag")
+                               "mv_normal_diag", event_rank=1)

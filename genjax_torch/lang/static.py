@@ -42,7 +42,7 @@ from genjax_torch.core.compiler.interpreters.incremental import Diff
 from genjax_torch.core.pytree import Pytree, tree_leaves, tree_map
 from genjax_torch.gfi.choice_map import ChoiceMap
 from genjax_torch.gfi.concepts import Argdiffs, EditRequest, Score
-from genjax_torch.gfi.gfn import GenerativeFunction, Trace
+from genjax_torch.gfi.gfn import GenerativeFunction, Trace, check_batch_args
 from genjax_torch.gfi.requests import Regenerate, Update
 from genjax_torch.gfi.selection import Selection
 
@@ -52,6 +52,7 @@ __all__ = [
     "StaticTrace",
     "StaticRequest",
     "trace_here",
+    "check_top_level_args",
     "AddressReuse",
     "MissingAddress",
 ]
@@ -74,6 +75,14 @@ class MissingAddress(Exception):
 _HANDLERS: contextvars.ContextVar[tuple] = contextvars.ContextVar(
     "genjax_torch_handlers", default=()
 )
+
+
+def check_top_level_args(args: tuple, batch: tuple) -> None:
+    """:func:`~genjax_torch.gfi.gfn.check_batch_args` for a call made
+    outside every ``@gen`` body (inside one, the handler has lifted the
+    body's constants already)."""
+    if batch and not _HANDLERS.get():
+        check_batch_args(args, batch)
 
 
 def trace_here(addr, gen_fn: GenerativeFunction, args: tuple):
@@ -519,17 +528,20 @@ class Fn(GenerativeFunction[Any]):
         return getattr(self.source, "__name__", "gen_fn")
 
     def simulate(self, key, args: tuple) -> StaticTrace:
+        check_top_level_args(args, tuple(key.shape[:-1]))
         h = SimulateHandler(key)
         retval = h.run(self.source, args)
         return StaticTrace(self, args, retval, tuple(h.subtraces),
                            tuple(h.addresses))
 
     def assess(self, chm: ChoiceMap, args: tuple, batch: tuple = ()):
+        check_top_level_args(args, tuple(batch))
         h = AssessHandler(chm, tuple(batch))
         retval = h.run(self.source, args)
         return h.score, retval
 
     def generate(self, key, constraint: ChoiceMap, args: tuple):
+        check_top_level_args(args, tuple(key.shape[:-1]))
         h = GenerateHandler(key, constraint)
         retval = h.run(self.source, args)
         trace = StaticTrace(self, args, retval, tuple(h.subtraces),
@@ -552,6 +564,7 @@ class Fn(GenerativeFunction[Any]):
     def edit(self, key, trace: StaticTrace, request: EditRequest,
              argdiffs: Argdiffs):
         args = Diff.tree_primal(argdiffs)
+        check_top_level_args(args, tuple(key.shape[:-1]))
         args_changed = not Diff.static_check_no_change(argdiffs)
         if isinstance(request, Update):
             h: Any = UpdateHandler(key, trace, request.constraint,

@@ -389,10 +389,13 @@ def test_discrete_hmm_takes_lifted_parameters_back_to_one_copy():
         one = path.simulate(keys[p], ())
         close(tr.get_choices()["z"][p], one.get_choices()["z"], rtol=0, atol=0)
         close(tr.get_score()[p], one.get_score(), rtol=1e-6, atol=1e-6)
+    # Every other argument lifted, as a top-level batched call takes it.
     per_exec = type(cfg)(cfg.prior_logits.expand(4, 4).clone(),
-                         cfg.transition_logits, cfg.observation_logits)
+                         cfg.transition_logits.expand(4, 4, 4),
+                         cfg.observation_logits.expand(
+                             (4,) + tuple(cfg.observation_logits.shape)))
     with pytest.raises(NotImplementedError, match="per-execution"):
-        discrete_hmm.simulate(keys, (per_exec, obs))
+        discrete_hmm.simulate(keys, (per_exec, obs.expand(4, 5)))
 
 
 @pytest.mark.parametrize("length", [3, 4])
