@@ -74,7 +74,23 @@ Phases (each prints one line; any failure exits non-zero):
      R-hat over the 512 coefficients, the sign-pattern separation, the
      distance to a float64 Newton MAP; chain-leapfrogs/s, the likelihood
      product's kernels and their time a leapfrog (two f32 GEMMs, TF32
-     off), idle share and peak memory.
+     off), idle share and peak memory;
+ 19. SLDS-RBPF at 2^19 particles through build_slds_rbpf: at one regime
+     (64 steps) against the float64 Kalman evidence; at two regimes and
+     16 steps against slds_exact_log_marginal over its 65 536 paths (in
+     float64); at two regimes and 64 steps (the path) against the same
+     filter on the CPU from the same key, with the CDF kernel's launches
+     held to the resamples its ESS history shows; particle-steps/s (the
+     median of 3 runs), host syncs, a profiled run's device ops, busy
+     time and idle share, peak memory;
+ 20. the Switch mixture through build_switch_mixture: ImportanceK SIR at
+     2^20 particles and its systematic resample (the CDF kernel), and MH
+     by Regenerate of the mixture over 2^19 chains x 64 steps, each
+     against the closed-form posterior (component frequencies and the
+     mean of m within 4 standard errors); an index-change Update with a
+     full constraint on 2^16 executions on the card and on the CPU from
+     the same key data; particles/s, chain-steps/s, idle share, device
+     ops, peak memory.
 Each path's kernel launches are counted from 0 just before it runs. The
 last three lines are the card's line, the kernels' JSON record and the
 result line.
@@ -141,33 +157,55 @@ def host_ms(fn, reps: int) -> float:
     return dt
 
 
-def profiled(fn, reps: int):
+def profiled(fn, reps: int, tries: int = 3):
     """Per call of ``fn`` under torch.profiler: ``(wall ms, device-busy
     ms, {kernel: ms}, device ops, host ms in kernel-launch calls)``.
-    Device-busy is the summed time of the device ops the calls ran
-    (``None`` where the profiler saw no device time)."""
+    Device-busy is the summed time of the device ops the calls ran. Now
+    and then a profile holds no device event at all (its device
+    collection stopped early), so it is taken again, up to ``tries``
+    times. If none saw the device, the device time is the calls' span
+    by CUDA events instead, with no split by kernel and the device ops
+    NaN (not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-    per_kernel, ops, launch_ms = {}, 0, 0.0
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total:
-            per_kernel[evt.key] = evt.self_device_time_total / 1e3 / reps
-            ops += evt.count
-        elif "LaunchKernel" in evt.key:
-            launch_ms += evt.cpu_time_total / 1e3
-    busy = sum(per_kernel.values()) if per_kernel else None
-    return wall, busy, per_kernel, ops / reps, launch_ms / reps
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+        per_kernel, ops, launch_ms = {}, 0, 0.0
+        for evt in prof.key_averages():
+            if (evt.device_type == DeviceType.CUDA
+                    and evt.self_device_time_total):
+                per_kernel[evt.key] = evt.self_device_time_total / 1e3 / reps
+                ops += evt.count
+            elif "LaunchKernel" in evt.key:
+                launch_ms += evt.cpu_time_total / 1e3
+        if per_kernel:
+            return wall, sum(per_kernel.values()), per_kernel, ops / reps, \
+                launch_ms / reps
+        print(f"[profiler] profile {attempt} of {tries} saw no device time",
+              flush=True)
+    return wall, cuda_ms(fn, reps), {}, math.nan, launch_ms / reps
+
+
+def finite_or_none(x):
+    """``x`` with every float that is not finite replaced by None, so that
+    a value not measured prints as JSON ``null``."""
+    if isinstance(x, float):
+        return x if math.isfinite(x) else None
+    if isinstance(x, dict):
+        return {k: finite_or_none(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [finite_or_none(v) for v in x]
+    return x
 
 
 def ops_by_module(fn) -> dict:
@@ -587,7 +625,6 @@ def nuts_regression_phase(dev, card: str, zero_counts, counts) -> dict:
     short, _ = E.build_nuts_regression(n_chains, 5, 5, depth)
     p_wall, busy, per_kernel, ops, _ = profiled(
         lambda: short(random.key(1, device=dev)), 1)
-    check(busy is not None, "config 2: the profiler saw no device time")
     once, _ = E.build_nuts_regression(n_chains, 1, 1, depth)
     mods = ops_by_module(lambda: once(random.key(2, device=dev)))
     # One transition on the card and on the CPU from the same key data
@@ -734,7 +771,6 @@ def nuts_logreg_phase(dev, card: str, zero_counts, counts) -> dict:
     short, _, _ = E.build_nuts_logreg(n_chains, 3, 3, n, d, depth)
     p_wall, busy, per_kernel, ops, _ = profiled(
         lambda: short(random.key(3, device=dev)), 1)
-    check(busy is not None, "config 8: the profiler saw no device time")
     out = {"chains": n_chains, "n": n, "d": d, "max_depth": depth,
            "num_warmup": warm, "num_samples": samp, "wall_s": wall,
            "chain_leapfrogs_per_s": leapfrogs / wall,
@@ -770,6 +806,317 @@ def nuts_logreg_phase(dev, card: str, zero_counts, counts) -> dict:
           f"{p_wall:.1f} ms, device busy {busy:.2f} ms, idle share "
           f"{out['idle_share']:.4f}, {ops / 6:.0f} device ops a transition; "
           f"peak device memory {peak:.2f} GB", flush=True)
+    return out
+
+
+def _timed_runs(fn, n: int = 3) -> list:
+    """Wall seconds of ``n`` calls, each ending in a synchronize."""
+    import torch
+
+    walls = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def slds_phase(dev, card: str, zero_counts, counts) -> dict:
+    """Phase 19: SLDS-RBPF at 2^19 particles: the exact checks at one
+    regime and at 16 steps, then the 64-step path with its launches."""
+    import torch
+
+    from genjax_torch import entry as E
+    from genjax_torch import models as M
+    from genjax_torch.core import random
+
+    n, n_steps = 1 << 19, 64
+    # One regime: the filter is the Kalman filter. The SLDS observes y_0
+    # against the x_0 prior; kalman_filter applies the dynamics before
+    # its first observation, so y_0 is conditioned here and the rest
+    # handed to it, in float64.
+    run1, p1, ys1 = E.build_slds_rbpf(n, n_steps, n_regimes=1, device=dev)
+    r1 = run1(random.key(1, device=dev))
+    y = ys1.double().cpu()
+    a, q, r = float(p1.a[0]), float(p1.q[0]), float(p1.r[0])
+    s0 = p1.p0 + r
+    k0 = p1.p0 / s0
+    ll0 = -0.5 * (math.log(2 * math.pi * s0) + (float(y[0]) - p1.mu0) ** 2
+                  / s0)
+    kf, _ = M.kalman_filter(y[1:], a, q, r,
+                            mu0=p1.mu0 + k0 * (float(y[0]) - p1.mu0),
+                            p0=(1 - k0) * p1.p0)
+    kalman = ll0 + float(kf)
+    rel1 = abs(float(r1.log_z) - kalman) / abs(kalman)
+    check(rel1 <= 1e-3, f"SLDS S=1: log Z {float(r1.log_z)} vs Kalman "
+          f"{kalman} (rel {rel1})")
+    # Two regimes, 16 steps: every one of the 2^16 regime paths.
+    run16, p16, ys16 = E.build_slds_rbpf(n, 16, device=dev)
+    p64 = M.SLDSParams(*(v.double() for v in p16[:5]))
+    exact16 = float(M.slds_exact_log_marginal(p64, ys16))
+    r16 = run16(random.key(2, device=dev))
+    err16 = abs(float(r16.log_z) - exact16)
+    check(err16 <= 0.02, f"SLDS T=16: log Z {float(r16.log_z)} vs exact "
+          f"{exact16}")
+    # The path: two regimes, 64 steps, its launches counted from 0.
+    run, params, ys = E.build_slds_rbpf(n, n_steps, device=dev)
+    key = random.key(3, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero_counts()
+    M.slds_rbpf.host_syncs = 0
+    res = run(key)
+    torch.cuda.synchronize()
+    launches, syncs = counts(), M.slds_rbpf.host_syncs
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    logz = float(res.log_z)
+    resamples = int((res.ess_history[:-1] < 0.5 * n).sum())
+    check(math.isfinite(logz), "SLDS T=64: log Z not finite")
+    check(resamples >= 1 and launches["cdf_counts"] == resamples,
+          f"SLDS T=64: {launches['cdf_counts']} CDF launches for "
+          f"{resamples} resamples in the ESS history")
+    check(launches["fused_step"] == launches["log_matmul"]
+          == launches["expand_adaptive"] == 0,
+          f"SLDS launched another kernel: {launches}")
+    check(syncs == n_steps - 1, f"SLDS: {syncs} host syncs")
+    run_cpu, _, ys_cpu = E.build_slds_rbpf(n, n_steps, device="cpu")
+    check(bool(torch.equal(ys_cpu, ys.cpu())), "SLDS: data differ by device")
+    t0 = time.perf_counter()
+    logz_cpu = float(run_cpu(key.cpu()).log_z)
+    cpu_s = time.perf_counter() - t0
+    check(abs(logz - logz_cpu) <= 0.05,
+          f"SLDS T=64: card {logz} vs CPU {logz_cpu}")
+    walls = _timed_runs(lambda i: run(random.key(10 + i, device=dev)))
+    wall = sorted(walls)[1]
+    rate = n * n_steps / wall
+    p_wall, busy, per_kernel, ops, _ = profiled(
+        lambda: run(random.key(20, device=dev)), 1)
+    out = {"particles": n, "steps": n_steps, "log_z": logz,
+           "log_z_cpu": logz_cpu, "cpu_s": cpu_s,
+           "s1_log_z": float(r1.log_z), "s1_kalman": kalman, "s1_rel": rel1,
+           "t16_log_z": float(r16.log_z), "t16_exact": exact16,
+           "t16_err": err16, "resamples": resamples,
+           "cdf_launches": launches["cdf_counts"], "host_syncs": syncs,
+           "wall_ms": [w * 1e3 for w in walls],
+           "particle_steps_per_s": rate, "profiled_wall_ms": p_wall,
+           "device_busy_ms": busy, "idle_share": 1.0 - busy / p_wall,
+           "device_ops": ops, "peak_gb": peak}
+    print(f"[19 SLDS-RBPF] {card}: 2^19 particles; S=1 x 64 steps: log Z "
+          f"{float(r1.log_z):.6f} vs float64 Kalman {kalman:.6f} (rel "
+          f"{rel1:.3g}, bound 1e-3); S=2 x 16 steps: {float(r16.log_z):.6f} "
+          f"vs exact {exact16:.6f} over 65536 paths (|err| {err16:.5f}, "
+          f"bound 0.02); S=2 x 64 steps: card {logz:.6f} vs CPU "
+          f"{logz_cpu:.6f} on the same key (|diff| {abs(logz - logz_cpu):.5f}, "
+          f"bound 0.05; CPU {cpu_s:.2f} s); {resamples} resamples, "
+          f"launches {launches}, {syncs} host syncs a run; wall per run "
+          f"{[round(w * 1e3, 2) for w in walls]} ms (median {wall * 1e3:.2f} "
+          f"ms), {rate:.6g} particle-steps/s; profiled run {p_wall:.2f} ms, "
+          f"device busy {busy:.3f} ms, idle share {out['idle_share']:.4f}, "
+          f"{ops:.0f} device ops; {top(per_kernel, 4)}; peak device memory "
+          f"{peak:.3f} GB above what earlier phases hold", flush=True)
+    return out
+
+
+def _mixture_index_change(device, n: int):
+    """An index-change Update with a full constraint on ``n`` executions
+    of the Switch mixture: the traces of one key batch constrained to
+    another's choices of ``m`` (component and branches). Returns the
+    weight, the score change it should equal, and the scores' sum of
+    magnitudes (the weight's f32 rounding scale)."""
+    import torch
+
+    import genjax_torch as g
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+    from genjax_torch.inference.smc import batched_importance
+
+    _, _, target = E.build_switch_mixture(n, n, 1, device=device)
+
+    def keys(seed):
+        return random.fold_in(random.key(seed, device=device),
+                              torch.arange(n, device=device))
+
+    tr, _ = batched_importance(target, keys(31), g.ChoiceMap.empty())
+    other, _ = batched_importance(target, keys(32), g.ChoiceMap.empty())
+    full = other.get_choices().filter(g.Selection.at["m"])
+    new, w, _, _ = tr.edit(keys(33), g.Update(full))
+    changed = (new.get_choices()["m", "mixture_component"]
+               != tr.get_choices()["m", "mixture_component"])
+    return (w, new.get_score() - tr.get_score(),
+            new.get_score().abs() + tr.get_score().abs(), changed)
+
+
+def mixture_phase(dev, card: str, zero_counts, counts) -> dict:
+    """Phase 20: the Switch mixture through SIR at 2^20 and MH at 2^19
+    chains, against the closed form; the index-change Update on the card
+    and on the CPU."""
+    import torch
+
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+
+    n_part, n_chains, n_mh = 1 << 20, 1 << 19, 64
+    from genjax_torch.ops.cdf_counts import systematic_cumulative
+
+    sir, run_mh, _ = E.build_switch_mixture(n_part, n_chains, n_mh,
+                                            device=dev)
+    exact = E.switch_mixture_exact()
+    probs = exact["probs"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero_counts()
+    out_sir = sir(random.key(1, device=dev))
+    torch.cuda.synchronize()
+    sir_launches = counts()
+    check(sir_launches["cdf_counts"] == 1,
+          f"mixture SIR: {sir_launches['cdf_counts']} CDF launches for its "
+          "one resample")
+    # The statistics are held on exact arithmetic: the weighted estimate
+    # (delta-method standard error) and the resample by float64 counts
+    # on the same weights and key (the binomial error on top). The
+    # kernel's counts are held to those float64 counts within 4
+    # destinations, phase 3's bound: its f32 sums can hand a few
+    # destinations across a tile boundary, which is visible only for a
+    # component as rare as b0 (P ~ 1e-7).
+    lw, k_res = out_sir["log_weights"], out_sir["resample_key"]
+    comp_w = out_sir["weighted_comp"]
+    cc_kernel = systematic_cumulative(k_res, lw, n_part).long()
+    cum = torch.cumsum(torch.exp(lw.double() - lw.double().max()), 0)
+    u0 = random.uniform(k_res, ()).double()
+    cc_exact = torch.clamp(torch.ceil(cum * (n_part / cum[-1]) - u0), 0,
+                           n_part).long()
+    cc_exact[-1] = n_part
+    cdf_dest = int((cc_kernel - cc_exact).abs().max())
+    check(cdf_dest <= 4, f"mixture SIR: the CDF kernel's counts are "
+          f"{cdf_dest} destinations from the float64 counts")
+
+    def by_comp(cc):
+        counts_ = torch.diff(cc, prepend=torch.zeros_like(cc[:1]))
+        return [int(counts_[comp_w == b].sum()) for b in range(3)]
+
+    n_kernel, n_exact = by_comp(cc_kernel), by_comp(cc_exact)
+    w = torch.softmax(lw.double(), 0)
+    freq_sir, freq_w, z_sir = [], [], []
+    for b in range(3):
+        got = float((out_sir["comp"] == b).double().mean())
+        check(got * n_part == n_kernel[b], f"mixture SIR: the resampled "
+              f"particles do not follow the kernel's counts ({b})")
+        f = (comp_w == b).double()
+        p_hat = float((w * f).sum())
+        se_w = math.sqrt(float((w * w * (f - p_hat) ** 2).sum()))
+        se = math.sqrt(se_w ** 2 + probs[b] * (1 - probs[b]) / n_part)
+        check(abs(p_hat - probs[b]) <= 4 * se_w + 1e-12,
+              f"mixture SIR: component {b} weighted estimate {p_hat} vs "
+              f"{probs[b]} (se {se_w})")
+        exact_freq = n_exact[b] / n_part
+        check(abs(exact_freq - probs[b]) <= 4 * se + 1e-12,
+              f"mixture SIR: component {b} resampled frequency "
+              f"{exact_freq} vs {probs[b]} (se {se})")
+        freq_sir.append(got)
+        freq_w.append(p_hat)
+        z_sir.append(float(abs(exact_freq - probs[b]) / max(se, 1e-12)))
+    m_w = out_sir["weighted_m"].double()
+    m_hat = float((w * m_w).sum())
+    se_m = math.sqrt(float((w * w * (m_w - m_hat) ** 2).sum()))
+    m_sir = float(out_sir["m"].double().mean())
+    counts_exact = torch.diff(cc_exact, prepend=torch.zeros_like(cc_exact[:1]))
+    m_exact_res = float((counts_exact.double() * m_w).sum()) / n_part
+    check(abs(m_hat - exact["mean"]) <= 4 * se_m,
+          f"mixture SIR: weighted mean of m {m_hat} vs {exact['mean']} "
+          f"(se {se_m})")
+    check(abs(m_exact_res - exact["mean"])
+          <= 4 * math.sqrt(se_m ** 2 + exact["var"] / n_part),
+          f"mixture SIR: resampled mean of m {m_exact_res} vs "
+          f"{exact['mean']}")
+    ess = float(1.0 / (w * w).sum())
+    del out_sir
+    zero_counts()
+    comp, m, acc = run_mh(random.key(2, device=dev))
+    torch.cuda.synchronize()
+    mh_launches = counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    check(not any(mh_launches.values()),
+          f"mixture MH launched a kernel: {mh_launches}")
+    freq_mh, z_mh = [], []
+    for b in range(3):
+        se = math.sqrt(max(probs[b] * (1 - probs[b]), 1e-12) / n_chains)
+        got = float((comp == b).double().mean())
+        freq_mh.append(got)
+        z_mh.append(float(abs(got - probs[b]) / se))
+        check(abs(got - probs[b]) <= 4 * se,
+              f"mixture MH: component {b} frequency {got} vs {probs[b]} "
+              f"(se {se})")
+    m_mh = float(m.double().mean())
+    check(abs(m_mh - exact["mean"]) <= 4 * math.sqrt(exact["var"] / n_chains),
+          f"mixture MH: mean of m {m_mh} vs {exact['mean']}")
+    acc = float(acc)
+    check(0.0 < acc < 1.0, f"mixture MH: acceptance {acc}")
+    del comp, m
+    # The index-change Update, card against CPU from the same key data.
+    n_edit = 1 << 16
+    w_g, d_g, scale_g, changed = _mixture_index_change(dev, n_edit)
+    w_c, d_c, scale_c, _ = _mixture_index_change(torch.device("cpu"), n_edit)
+    worst = {"card vs cpu": _close(w_g, w_c, scale_c),
+             "card vs score change": _close(w_g, d_g, scale_g),
+             "cpu vs score change": _close(w_c, d_c, scale_c)}
+    check(all(v <= 1.0 for v in worst.values()),
+          f"mixture index-change Update beyond the bound: {worst}")
+    walls_sir = _timed_runs(lambda i: sir(random.key(10 + i, device=dev)))
+    walls_mh = _timed_runs(lambda i: run_mh(random.key(20 + i, device=dev)))
+    rate_sir = n_part / sorted(walls_sir)[1]
+    rate_mh = n_chains * n_mh / sorted(walls_mh)[1]
+    sp_wall, sp_busy, sp_kernels, sp_ops, _ = profiled(
+        lambda: sir(random.key(30, device=dev)), 1)
+    _, short_mh, _ = E.build_switch_mixture(n_part, n_chains, 4, device=dev)
+    mp_wall, mp_busy, mp_kernels, mp_ops, _ = profiled(
+        lambda: short_mh(random.key(31, device=dev)), 1)
+    out = {"particles": n_part, "chains": n_chains, "mh_steps": n_mh,
+           "exact_probs": [float(p) for p in probs],
+           "exact_mean": exact["mean"],
+           "sir_freq": freq_sir, "sir_weighted_freq": freq_w,
+           "sir_counts_kernel": n_kernel, "sir_counts_float64": n_exact,
+           "cdf_max_dest_diff": cdf_dest, "sir_z": z_sir,
+           "sir_weighted_mean_m": m_hat, "sir_mean_m": m_sir,
+           "sir_ess": ess, "mh_freq": freq_mh, "mh_z": z_mh,
+           "mh_mean_m": m_mh, "accept_rate": acc,
+           "sir_launches": sir_launches, "mh_launches": mh_launches,
+           "edit_worst": worst, "edit_index_changes": int(changed.sum()),
+           "sir_wall_ms": [x * 1e3 for x in walls_sir],
+           "mh_wall_ms": [x * 1e3 for x in walls_mh],
+           "particles_per_s": rate_sir, "chain_steps_per_s": rate_mh,
+           "sir_profiled_wall_ms": sp_wall, "sir_device_busy_ms": sp_busy,
+           "sir_idle_share": 1.0 - sp_busy / sp_wall, "sir_device_ops": sp_ops,
+           "mh4_profiled_wall_ms": mp_wall, "mh4_device_busy_ms": mp_busy,
+           "mh_idle_share": 1.0 - mp_busy / mp_wall,
+           "mh_device_ops_per_step": mp_ops / 4, "peak_gb": peak}
+    print(f"[20 Switch mixture] {card}: closed form P(comp | y) "
+          f"{[round(float(p), 6) for p in probs]}, E[m | y] {exact['mean']:.6f}; "
+          f"SIR 2^20 (ESS {ess:.6g}): weighted frequencies "
+          f"{[round(f, 6) for f in freq_w]}, resampled by float64 counts "
+          f"{n_exact} ({[round(float(z), 2) for z in z_sir]} se from the closed "
+          f"form), by the kernel {n_kernel} (its cumulative counts within "
+          f"{cdf_dest} destinations of float64's); mean of m weighted "
+          f"{m_hat:.6f}, resampled by float64 counts {m_exact_res:.6f}, by "
+          f"the kernel {m_sir:.6f}; launches {sir_launches}; MH "
+          f"2^19 "
+          f"chains x {n_mh} steps: frequencies {[round(f, 6) for f in freq_mh]}"
+          f" ({[round(float(z), 2) for z in z_mh]} se), mean of m {m_mh:.6f}, "
+          f"acceptance {acc:.4f}, launches {mh_launches}; index-change "
+          f"Update at 2^16 ({int(changed.sum())} executions change "
+          f"component) worst |diff| / bound {worst}; SIR wall "
+          f"{[round(x * 1e3, 2) for x in walls_sir]} ms, {rate_sir:.6g} "
+          f"particles/s, profiled {sp_wall:.2f} ms, busy {sp_busy:.3f} ms, "
+          f"idle {out['sir_idle_share']:.4f}, {sp_ops:.0f} device ops; MH "
+          f"wall {[round(x * 1e3, 1) for x in walls_mh]} ms, {rate_mh:.6g} "
+          f"chain-steps/s, 4 steps profiled {mp_wall:.2f} ms, busy "
+          f"{mp_busy:.3f} ms, idle {out['mh_idle_share']:.4f}, "
+          f"{mp_ops / 4:.0f} device ops a step; {top(mp_kernels, 3)}; peak "
+          f"device memory {peak:.3f} GB above what earlier phases hold",
+          flush=True)
     return out
 
 
@@ -1059,7 +1406,7 @@ def main() -> int:
     ):
         _, busy[name], per_kernel, ops_per_call[name], _ = profiled(fn, reps)
         print(f"[7 profile {name}] {card}: device busy "
-              f"{busy[name] if busy[name] is None else round(busy[name], 5)}"
+              f"{round(busy[name], 5)}"
               f" ms per call, {ops_per_call[name]:.0f} device ops a call; "
               f"{top(per_kernel)}", flush=True)
     check(ops_per_call["fused_step"] == 1,
@@ -1084,7 +1431,7 @@ def main() -> int:
         rates[name] = work / dt
         wall, dbusy, per_kernel, ops, launch_ms = profiled(
             lambda: run(random.key(20, device=dev)), 1)
-        idle = None if dbusy is None else 1.0 - dbusy / wall
+        idle = 1.0 - dbusy / wall
         print(f"[7 {name}] {card}: {dt * 1e3:.2f} ms per 2^20 x 32 run, "
               f"{rates[name]:.4g} particle-steps/s; profiled run "
               f"{wall:.2f} ms, device busy {dbusy} ms, idle share {idle}, "
@@ -1447,7 +1794,7 @@ def main() -> int:
     rates["build_hmm_smc"] = work3 / dt3
     wall, dbusy, per_kernel, ops, launch_ms = profiled(
         lambda: run3(random.key(9, device=dev)), 1)
-    idle = None if dbusy is None else 1.0 - dbusy / wall
+    idle = 1.0 - dbusy / wall
     print(f"[13 build_hmm_smc] {card}: {dt3 * 1e3:.2f} ms per 64 x 64 x 2^19 "
           f"run, {rates['build_hmm_smc']:.4g} particle-steps/s; profiled run "
           f"{wall:.2f} ms, device busy {dbusy} ms, idle share {idle}, "
@@ -1533,7 +1880,7 @@ def main() -> int:
     wall, dbusy, per_kernel, ops, launch_ms = profiled(
         lambda: run6(random.key(9, device=dev)), 1)
     peak6 = torch.cuda.max_memory_allocated() / 1e9
-    idle6 = None if dbusy is None else 1.0 - dbusy / wall
+    idle6 = 1.0 - dbusy / wall
     mods6 = ops_by_module(lambda: run6(random.key(10, device=dev)))
     torch.cuda.synchronize()
     print(f"[15 config 6] {card}: 2^19 x 16 rungs x 2 moves: log Z "
@@ -1556,18 +1903,26 @@ def main() -> int:
     nuts = {"config_2": nuts_regression_phase(dev, card, zero_counts, counts),
             "config_8": nuts_logreg_phase(dev, card, zero_counts, counts)}
 
+    # -- 19-20. the switch-and-models slice ---------------------------------
+    slds = slds_phase(dev, card, zero_counts, counts)
+    mixture = mixture_phase(dev, card, zero_counts, counts)
+
     lm_main = lm_rows[s_hmm]
     record = {"kernels": [
         {"name": "cdf_counts", "route": "cuda",
          "source": "genjax_torch/csrc/cdf_counts.cu",
          "replaces": "genjax_tpu/ops/cdf_counts.py:175",
          "launches": (launches["cdf_counts"] + c3_launches["cdf_counts"]
-                      + c6_launches["cdf_counts"]),
+                      + c6_launches["cdf_counts"] + slds["cdf_launches"]
+                      + mixture["sir_launches"]["cdf_counts"]),
          "launches_by_run": {
              **{k: v["cdf_counts"] for k, v in by_run.items()},
              "config_4_path": launches["cdf_counts"],
              "build_hmm_smc": c3_launches["cdf_counts"],
-             "build_tempered_smc": c6_launches["cdf_counts"]},
+             "build_tempered_smc": c6_launches["cdf_counts"],
+             "build_slds_rbpf": slds["cdf_launches"],
+             "build_switch_mixture_sir": mixture["sir_launches"][
+                 "cdf_counts"]},
          "max_abs_err": cdf_err,
          "ms": cdf_ms, "plain_ms": cdf_plain_ms,
          "bound_ms": cdf_bound, "bound_by": cdf_by, "library_ms": None,
@@ -1623,9 +1978,10 @@ def main() -> int:
                      "particle_rung_moves_per_s": rates["build_tempered_smc"],
                      "device_busy_ms": dbusy, "idle_share": idle6,
                      "peak_gb": peak6, "ops_by_module": mods6},
-        "edits": c6_edit, "nuts": nuts}
+        "edits": c6_edit, "nuts": nuts, "slds_rbpf": slds,
+        "switch_mixture": mixture}
     print(card, flush=True)
-    print(json.dumps(record), flush=True)
+    print(json.dumps(finite_or_none(record)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -5,11 +5,13 @@ filtering with systematic resampling), the discrete-HMM slice (the
 exact ``DiscreteHMM`` posterior with its parallel-prefix filter, the
 exact testbed, the HMM bootstrap filter), the edits slice (the five
 GFI methods with ``edit``, the Vmap / repeat and Scan combinators, MH and
-the tempered SMC samplers) and gradient MCMC (HMC, MALA, NUTS with
+the tempered SMC samplers), gradient MCMC (HMC, MALA, NUTS with
 cross-chain adaptation, elliptical slice, support transforms,
-diagnostics; bench configs 2 and 8 in ``entry``), with every kernel of
-the JAX package written by hand for Hopper (``ops/``). The package
-imports ``torch`` and never ``jax``.
+diagnostics; bench configs 2 and 8 in ``entry``), and the switch-and-models
+slice (Switch, mix, or_else; exact enumeration, posterior predictive; the
+model families of ``models`` with their oracles, SLDS-RBPF among them),
+with every kernel of the JAX package written by hand for Hopper
+(``ops/``). The package imports ``torch`` and never ``jax``.
 """
 
 from genjax_torch.core.compiler.interpreters.incremental import (
@@ -64,18 +66,23 @@ from genjax_torch.lang.static import (
     gen,
 )
 from genjax_torch.lang.combinators import (
+    OrElse,
     Scan,
+    Switch,
     Vmap,
     accumulate,
     iterate,
     iterate_final,
+    mix,
+    or_else,
     reduce,
     repeat,
     scan,
+    switch,
     vmap,
 )
 from genjax_torch.core import random  # noqa: E402
-from genjax_torch import inference, ops  # noqa: E402,F401
+from genjax_torch import inference, models, ops  # noqa: E402,F401
 from genjax_torch.inference import (  # noqa: E402
     HMC,
     MALA,
@@ -90,7 +97,8 @@ from genjax_torch.inference import (  # noqa: E402
 
 #: Entry points of ``genjax_torch.entry`` reachable from the package
 #: (``entry`` imports the package, so they load on first use).
-_ENTRY_POINTS = ("build_nuts_regression", "build_nuts_logreg")
+_ENTRY_POINTS = ("build_nuts_regression", "build_nuts_logreg",
+                 "build_slds_rbpf", "build_switch_mixture")
 
 
 def __getattr__(name):
@@ -132,6 +140,7 @@ __all__ = [
     "NUTS",
     "NoChange",
     "NotSupportedEditRequest",
+    "OrElse",
     "PrimitiveEditRequest",
     "Pytree",
     "Regenerate",
@@ -143,6 +152,7 @@ __all__ = [
     "Selection",
     "StaticRequest",
     "StaticTrace",
+    "Switch",
     "Trace",
     "UnknownChange",
     "Update",
@@ -151,21 +161,27 @@ __all__ = [
     "accumulate",
     "build_nuts_logreg",
     "build_nuts_regression",
+    "build_slds_rbpf",
+    "build_switch_mixture",
     "empty_trace",
     "ess_autocorr",
     "gen",
     "inference",
     "iterate",
     "iterate_final",
+    "mix",
+    "models",
     "multi_switch",
     "nuts_kernel",
     "ops",
+    "or_else",
     "random",
     "reduce",
     "repeat",
     "run_nuts",
     "scan",
     "split_rhat",
+    "switch",
     "tree_choose",
     "vmap",
     *_dist_all,

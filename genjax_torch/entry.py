@@ -28,7 +28,15 @@
   ``benchmarks/run_all.py::config2_nuts``);
 - :func:`build_nuts_logreg`: bench config 8, NUTS on a Bayesian logistic
   regression over an 8192 x 512 design matrix (counterpart of
-  ``benchmarks/run_all.py::config8_mxu_logreg``).
+  ``benchmarks/run_all.py::config8_mxu_logreg``);
+- :func:`build_slds_rbpf`: the Rao-Blackwellized particle filter of a
+  switching linear dynamical system (``models/slds.py``), with the exact
+  oracles ``slds_exact_log_marginal`` and, at one regime, the Kalman
+  filter;
+- :func:`build_switch_mixture`: a three-component ``mix`` of branches
+  with different addresses, observed once, through ``ImportanceK`` SIR
+  and through MH by ``Regenerate`` of the mixture; its posterior is the
+  closed form :func:`switch_mixture_exact`.
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (or another device); without a card it raises rather
@@ -47,7 +55,8 @@ import torch
 
 import genjax_torch as g
 from genjax_torch.core import random
-from genjax_torch.inference import ImportanceK, Target, run_nuts
+from genjax_torch.inference import ImportanceK, Target, mh, run_nuts
+from genjax_torch.inference.smc import batched_importance
 from genjax_torch.inference.exact_testbed import sample_problem
 from genjax_torch.inference.pf import fused_particle_filter, particle_filter
 from genjax_torch.inference.smc_sampler import tempered_smc
@@ -56,6 +65,11 @@ from genjax_torch.lang.distributions.discrete_hmm import (
     DiscreteHMMConfiguration,
 )
 from genjax_torch.models.hmm import hmm_bootstrap_filter, hmm_model
+from genjax_torch.models.slds import (
+    SLDSParams,
+    simulate_slds_data,
+    slds_rbpf,
+)
 from genjax_torch.ops.fused_step import CudaModel
 
 __all__ = [
@@ -87,6 +101,11 @@ __all__ = [
     "logreg_model",
     "logreg_data",
     "build_nuts_logreg",
+    "slds_params",
+    "build_slds_rbpf",
+    "switch_mixture_model",
+    "switch_mixture_exact",
+    "build_switch_mixture",
 ]
 
 
@@ -490,3 +509,154 @@ def build_nuts_logreg(n_chains: int = 1024, num_warmup: int = 100,
                         max_depth=max_depth)
 
     return run, target, beta_true
+
+
+#: The SLDS data's key (the JAX package's SLDS tests use it too).
+SLDS_DATA_SEED = 20260820
+
+
+def slds_params(n_regimes: int = 2, device=None) -> SLDSParams:
+    """The SLDS of the JAX package's tests: two regimes (trans ``[[0.9,
+    0.1], [0.2, 0.8]]``, prior ``[0.6, 0.4]``, a ``[0.95, 0.3]``, q ``[0.1,
+    0.8]``, r ``[0.3, 0.3]``), or one (a 0.8, q 0.3, r 0.4), where the
+    filter is the Kalman filter."""
+    def t(v):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    if n_regimes == 1:
+        return SLDSParams(trans_logits=torch.zeros((1, 1), device=device),
+                          prior_logits=torch.zeros(1, device=device),
+                          a=t([0.8]), q=t([0.3]), r=t([0.4]))
+    if n_regimes != 2:
+        raise ValueError("slds_params: 1 or 2 regimes")
+    return SLDSParams(trans_logits=torch.log(t([[0.9, 0.1], [0.2, 0.8]])),
+                      prior_logits=torch.log(t([0.6, 0.4])),
+                      a=t([0.95, 0.3]), q=t([0.1, 0.8]), r=t([0.3, 0.3]))
+
+
+def build_slds_rbpf(n_particles: int = 2 ** 19, n_steps: int = 64,
+                    n_regimes: int = 2, device=None):
+    """SLDS-RBPF at ``n_particles`` x ``n_steps`` on :func:`slds_params`,
+    its data ``simulate_slds_data(key(20260820), T)`` drawn on the CPU
+    (so every device filters the same observations). Returns ``(run,
+    params, ys)``: ``run(key) -> RBPFResult``."""
+    device = _device(device)
+    _, _, ys = simulate_slds_data(random.key(SLDS_DATA_SEED),
+                                  slds_params(n_regimes), n_steps)
+    params = slds_params(n_regimes, device)
+    rbpf = slds_rbpf(params, n_particles)
+    ys = ys.to(device)
+
+    def run(key):
+        return rbpf(key, ys)
+
+    return run, params, ys
+
+
+#: The Switch mixture: component weights, the branches' means and sds,
+#: the observation's noise sd and its value.
+MIXTURE_PROBS = (0.3, 0.4, 0.3)
+MIXTURE_MEANS, MIXTURE_SDS = (-2.0, 1.0, 3.0), (0.5, 1.0, 0.5)
+MIXTURE_NOISE, MIXTURE_Y = 0.5, 2.0
+
+
+def switch_mixture_model():
+    """``m = mix(b0, b1, b2)(logits, (), (), ()) @ "m"``, ``y ~
+    normal(m, 0.5)``, with ``b0 = normal(-2, 0.5) @ "v"``, ``b1 =
+    normal(1, 1) @ "v"`` and ``b2 = 3 + 0.5·normal(0, 1) @ "u"`` (another
+    address, so an untaken branch's choices are real placeholders)."""
+
+    @g.gen
+    def b0():
+        return g.normal(MIXTURE_MEANS[0], MIXTURE_SDS[0]) @ "v"
+
+    @g.gen
+    def b1():
+        return g.normal(MIXTURE_MEANS[1], MIXTURE_SDS[1]) @ "v"
+
+    @g.gen
+    def b2():
+        return MIXTURE_MEANS[2] + MIXTURE_SDS[2] * (g.normal(0.0, 1.0) @ "u")
+
+    mixture = g.mix(b0, b1, b2)
+
+    @g.gen
+    def model(logits):
+        m = mixture(logits, (), (), ()) @ "m"
+        _ = g.normal(m, MIXTURE_NOISE) @ "y"
+        return m
+
+    return model
+
+
+def switch_mixture_exact() -> dict:
+    """The closed-form posterior of :func:`switch_mixture_model` given
+    ``y``, float64: ``P(comp = b | y) ∝ π_b N(y; m_b, s_b² + 0.25)``, and
+    the posterior mean and variance of ``m`` (conjugate within each
+    component)."""
+    pi, mu = np.array(MIXTURE_PROBS), np.array(MIXTURE_MEANS)
+    var, nv = np.array(MIXTURE_SDS) ** 2, MIXTURE_NOISE ** 2
+    y = MIXTURE_Y
+    s2 = var + nv
+    lik = np.exp(-0.5 * (y - mu) ** 2 / s2) / np.sqrt(2 * np.pi * s2)
+    probs = pi * lik / (pi * lik).sum()
+    post_var = 1.0 / (1.0 / var + 1.0 / nv)
+    post_mean = post_var * (mu / var + y / nv)
+    mean = float((probs * post_mean).sum())
+    second = float((probs * (post_var + post_mean ** 2)).sum())
+    return {"probs": probs, "mean": mean, "var": second - mean ** 2,
+            "log_z": float(np.log((pi * lik).sum()))}
+
+
+def build_switch_mixture(n_particles: int = 2 ** 20, n_chains: int = 2 ** 19,
+                         n_mh_steps: int = 64, device=None):
+    """The Switch mixture through SIR and MH. Returns ``(run_sir, run_mh,
+    target)``:
+
+    - ``run_sir(key) -> dict``: ``ImportanceK`` at ``n_particles``, then
+      systematic resampling (the CDF kernel on the card): the resampled
+      components and ``m`` values (``"comp"``, ``"m"``), and the weighted
+      particles before it (``"weighted_comp"``, ``"weighted_m"``,
+      ``"log_weights"``) and the resample's key;
+    - ``run_mh(key) -> (comp, m, accept_rate)``: ``n_chains`` chains from
+      the prior (``y`` constrained), ``n_mh_steps`` MH steps of
+      ``Regenerate(Selection.at["m"])`` (the component and its branch
+      redrawn from the prior, an index change the Switch weighs 0), the
+      final components and ``m`` values and the acceptance over all
+      steps and chains.
+
+    Chain ``c``'s step ``i`` runs on ``fold_in(split(k_run, n_chains)[c],
+    i)``."""
+    device = _device(device)
+    logits = torch.log(torch.tensor(MIXTURE_PROBS, device=device))
+    target = Target(switch_mixture_model(), (logits,),
+                    g.C["y"].set(torch.tensor(MIXTURE_Y, device=device)))
+
+    def values(tr):
+        chm = tr.get_choices()
+        return chm["m", "mixture_component"], tr.get_retval()
+
+    def run_sir(key):
+        k_run, k_res = random.split(key).unbind(-2)
+        col = ImportanceK(target, k_particles=n_particles).run_smc(k_run)
+        comp_w, m_w = values(col.get_particles())
+        comp, m = values(col.resample(k_res).get_particles())
+        return {"comp": comp, "m": m, "weighted_comp": comp_w,
+                "weighted_m": m_w, "log_weights": col.get_log_weights(),
+                "resample_key": k_res}
+
+    request = g.Regenerate(g.Selection.at["m"])
+
+    def run_mh(key):
+        k_init, k_run = random.split(key).unbind(-2)
+        trace, _ = batched_importance(target, random.split(k_init, n_chains),
+                                      g.ChoiceMap.empty())
+        chain_keys = random.split(k_run, n_chains)
+        accepted = torch.zeros((), device=device)
+        for i in range(n_mh_steps):
+            trace, acc = mh(random.fold_in(chain_keys, i), trace, request)
+            accepted = accepted + acc.sum()
+        comp, m = values(trace)
+        return comp, m, accepted / (n_chains * n_mh_steps)
+
+    return run_sir, run_mh, target

@@ -1,10 +1,9 @@
 """The generative function interface: ``Trace`` and ``GenerativeFunction``
 (counterpart of ``genjax_tpu/gfi/gfn.py``), with the postfix methods of
-the ported combinators (``vmap``, ``repeat``, ``scan``, ``accumulate``,
+the combinators (``vmap``, ``repeat``, ``scan``, ``accumulate``,
 ``reduce``, ``iterate``, ``iterate_final``, ``masked_iterate``, ``mask``,
-``dimap``, ``map``, ``contramap``). The others (``switch``, ``mix``,
-``or_else``, ``marginal``) raise, naming the ROADMAP item that ports
-them."""
+``dimap``, ``map``, ``contramap``, ``switch``, ``mix``, ``or_else``).
+``marginal`` raises, naming the ROADMAP item that ports it."""
 
 from __future__ import annotations
 
@@ -267,24 +266,26 @@ class GenerativeFunction(Pytree, Generic[R]):
 
         return contramap(pre)(self)
 
-    def _not_ported(self, method: str):
-        raise NotImplementedError(
-            f"GenerativeFunction.{method} is not ported yet: its combinator "
-            "comes with ROADMAP queue 1 item 8 (Switch, mix, or_else)")
-
     def switch(self, *branches):
-        self._not_ported("switch")
+        from genjax_torch.lang.combinators.switch import switch
+
+        return switch(self, *branches)
 
     def mix(self, *fns):
-        self._not_ported("mix")
+        from genjax_torch.lang.combinators.mixture import mix
+
+        return mix(self, *fns)
 
     def or_else(self, gen_fn):
-        self._not_ported("or_else")
+        from genjax_torch.lang.combinators.or_else import or_else
+
+        return or_else(gen_fn)(self)
 
     def marginal(self, *, selection=None, algorithm=None):
         raise NotImplementedError(
-            "GenerativeFunction.marginal is not ported yet: build "
-            "inference.Marginal directly")
+            "GenerativeFunction.marginal is not ported yet: it needs the "
+            "GenSP methods of SMCAlgorithm, which come with ChangeTarget "
+            "(ROADMAP queue 1 item 4)")
 
 
 @Pytree.dataclass

@@ -109,6 +109,16 @@ class Selection(Pytree):
     def none() -> "Selection":
         return NoneSel()
 
+    @staticmethod
+    def leaf() -> "Selection":
+        return LeafSel()
+
+    @staticmethod
+    def idx_above(threshold) -> "Selection":
+        """Every subtree at an integer address above ``threshold`` (a
+        number, or a tensor with one threshold per execution)."""
+        return AboveIdxSel(threshold)
+
     class _AtBuilder:
         def __getitem__(self, addr) -> "Selection":
             return Selection.all().extend(*addr_tuple(addr))
@@ -135,6 +145,17 @@ class NoneSel(Selection):
 
     def get_subselection(self, comp) -> Selection:
         return self
+
+
+@Pytree.dataclass
+class LeafSel(Selection):
+    """Selects the value at this node and none of its descendants."""
+
+    def check(self) -> Flag:
+        return True
+
+    def get_subselection(self, comp) -> Selection:
+        return NoneSel()
 
 
 @Pytree.dataclass
@@ -190,6 +211,25 @@ class IdxSel(Selection):
         if hit.ndim == 0:
             return self.inner.mask(bool(hit))
         return self.inner.mask(hit)
+
+
+@Pytree.dataclass
+class AboveIdxSel(Selection):
+    """Selects every subtree at an integer component strictly above
+    ``threshold`` (the later steps of a Scan trace, say)."""
+
+    threshold: Any
+
+    def check(self) -> Flag:
+        return False
+
+    def get_subselection(self, comp) -> Selection:
+        if isinstance(comp, str):
+            return NoneSel()
+        if not isinstance(comp, torch.Tensor) and not isinstance(
+                self.threshold, torch.Tensor):
+            return AllSel().mask(bool(comp > self.threshold))
+        return AllSel().mask(_t(comp) > _t(self.threshold))
 
 
 @Pytree.dataclass

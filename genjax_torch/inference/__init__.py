@@ -1,7 +1,7 @@
 """Inference: targets, importance sampling / SIR, particle filters, MH,
-the tempered SMC samplers, and gradient MCMC (HMC, MALA, NUTS with
+the tempered SMC samplers, gradient MCMC (HMC, MALA, NUTS with
 cross-chain adaptation, elliptical slice, support transforms and
-diagnostics)."""
+diagnostics), exact enumeration and posterior predictive sampling."""
 
 from genjax_torch.inference.adaptation import run_nuts, warmup_chains
 from genjax_torch.inference.diagnostics import (
@@ -9,7 +9,12 @@ from genjax_torch.inference.diagnostics import (
     split_rhat,
     summarize,
 )
+from genjax_torch.inference.enumerative import (
+    EnumerationResult,
+    enumerate_posterior,
+)
 from genjax_torch.inference.mcmc import chain, mh, multi_chain
+from genjax_torch.inference.predictive import posterior_predictive
 from genjax_torch.inference.requests import (
     HMC,
     MALA,
@@ -66,6 +71,7 @@ __all__ = [
     "Algorithm",
     "Bijector",
     "EllipticalSlice",
+    "EnumerationResult",
     "HMC",
     "MALA",
     "NUTS",
@@ -73,10 +79,12 @@ __all__ = [
     "SafeHMC",
     "constrain_choices",
     "elliptical_slice_kernel",
+    "enumerate_posterior",
     "ess_autocorr",
     "interval",
     "nuts_kernel",
     "positive",
+    "posterior_predictive",
     "run_nuts",
     "selection_gradient",
     "split_rhat",

@@ -9,9 +9,11 @@ and :func:`constrain_choices` sums them over everything behind the
 ``batch_rank`` leading axes: one term per execution, where the JAX
 package, under ``vmap``, sums one execution's leaf whole.
 
-Not ported yet: ``Switch`` choice maps and the branch-dependent
-``PerBranch`` specs. Both raise; they come with the combinators slice
-(ROADMAP queue 1 item 2).
+Under a ``Switch`` choice map a branch's leaf exists only in the
+executions that take the branch: its log-Jacobian term is gated by
+``idx == b`` (the index clamped, as the combinator clamps it), and an
+address whose support differs between branches gets a :class:`PerBranch`
+spec, one bijector a branch.
 """
 
 from __future__ import annotations
@@ -39,10 +41,6 @@ __all__ = ["Bijector", "identity", "positive", "interval", "simplex",
            "PerBranch", "get_bijector", "constrain_choices",
            "unconstrain_choices", "infer_transforms", "path_present",
            "resolve_transforms"]
-
-_COMBINATORS_SLICE = ("ROADMAP queue 1 item 2, the combinators slice "
-                      "(Switch, mix, or_else)")
-
 
 class Bijector(NamedTuple):
     """u (unconstrained) <-> x (constrained). ``fldj(u)`` is
@@ -130,9 +128,18 @@ simplex = Bijector(
 _NAMED = {"identity": identity, "positive": positive, "simplex": simplex}
 
 
+#: "Absent from this Switch branch", told apart from "present and
+#: unconstrained" (``None``) while supports are inferred.
+_ABSENT = object()
+
+
 class PerBranch(NamedTuple):
     """Branch-dependent bijector specs for an address under a ``Switch``
-    node. Not ported yet: a spec of this kind raises."""
+    node whose branches give it different supports (``"x"`` normal in
+    branch 0, gamma in branch 1): ``specs[b]`` applies to branch ``b``'s
+    leaf, ``None`` is the identity. Nested Switch levels nest
+    ``PerBranch`` specs, the outermost level first.
+    :func:`infer_transforms` builds them."""
 
     specs: tuple
 
@@ -143,9 +150,9 @@ def get_bijector(spec) -> Bijector:
     if spec is None:
         return identity
     if isinstance(spec, PerBranch):
-        raise NotImplementedError(
-            f"PerBranch transform specs are not ported yet: they come with "
-            f"{_COMBINATORS_SLICE}")
+        raise ValueError(
+            "a PerBranch spec names one bijector per Switch branch: it "
+            "resolves at an address under Switch nodes only")
     if isinstance(spec, str):
         if spec == "unit_interval":
             return interval(0.0, 1.0)
@@ -156,6 +163,22 @@ def get_bijector(spec) -> Bijector:
     if isinstance(spec, tuple) and len(spec) == 2:
         return interval(*spec)
     raise ValueError(f"Unknown bijector spec: {spec!r}")
+
+
+def _spec_equal(a, b) -> bool:
+    """Support-spec equality that takes tensor-valued interval bounds
+    (a uniform site with vector arguments) leaf by leaf."""
+    if isinstance(a, tuple) and isinstance(b, tuple):
+        return len(a) == len(b) and all(
+            _spec_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, str) or isinstance(b, str):
+        return a == b
+    if a is None or b is None:
+        return a is b
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        return a.shape == b.shape and bool(torch.equal(a.to(b), b))
+    return a == b
 
 
 def _addr_path(addr) -> tuple:
@@ -170,52 +193,66 @@ def _and_gate(a, b):
     return torch.logical_and(torch.as_tensor(a), torch.as_tensor(b))
 
 
-def _map_at(chm: ChoiceMap, path: tuple, fn: Callable, gate=None):
-    """Replace the leaf at ``path`` with ``fn(value, gate)``, returning
-    ``(new_chm, found)``. ``Indexed`` nodes (Scan and Vmap choices) are
-    transparent: ``path`` does not name the integer layer, and ``fn``
-    sees the whole stacked leaf. ``gate`` (None: live everywhere) is the
-    conjunction of the ``Mask`` flags and ``Filtered`` selections on
-    the way down."""
+def _map_at(chm: ChoiceMap, path: tuple, fn: Callable, gate=None,
+            branch: tuple = ()):
+    """Replace the leaf at ``path`` with ``fn(value, gate, branch)``,
+    returning ``(new_chm, found)``. ``Indexed`` nodes (Scan and Vmap
+    choices) are transparent: ``path`` does not name the integer layer,
+    and ``fn`` sees the whole stacked leaf. ``gate`` (None: live
+    everywhere) is the conjunction of the ``Mask`` flags, ``Filtered``
+    selections and Switch branch conditions on the way down; ``branch``
+    is the stack of Switch branch indices, the outermost first. One
+    address may be found in several branches, each visit gated by its
+    own condition."""
     if isinstance(chm, Indexed):
-        new_inner, found = _map_at(chm.inner, path, fn, gate)
+        new_inner, found = _map_at(chm.inner, path, fn, gate, branch)
         return (Indexed(new_inner, chm.idx, chm.n, chm.batch_rank)
                 if found else chm), found
     if not path:
         if isinstance(chm, Choice):
             v = chm.v
             if isinstance(v, Mask):
-                new = fn(v.value, _and_gate(gate, v.primal_flag()))
+                new = fn(v.value, _and_gate(gate, v.primal_flag()), branch)
                 return Choice(Mask.build(new, v.flag)), True
-            return Choice(fn(v, gate)), True
+            return Choice(fn(v, gate, branch)), True
         return chm, False
     if isinstance(chm, Static):
         comp, rest = path[0], path[1:]
         for i, (k, sub) in enumerate(zip(chm.keys, chm.submaps)):
             if k == comp:
-                new_sub, found = _map_at(sub, rest, fn, gate)
+                new_sub, found = _map_at(sub, rest, fn, gate, branch)
                 if not found:
                     return chm, False
                 return Static(chm.submaps[:i] + (new_sub,)
                               + chm.submaps[i + 1:], chm.keys), True
         return chm, False
     if isinstance(chm, Or):
-        new_left, found = _map_at(chm.left, path, fn, gate)
+        new_left, found = _map_at(chm.left, path, fn, gate, branch)
         if found:
             return Or(new_left, chm.right), True
-        new_right, found = _map_at(chm.right, path, fn, gate)
+        new_right, found = _map_at(chm.right, path, fn, gate, branch)
         return (Or(chm.left, new_right) if found else chm), found
     if isinstance(chm, Switch):
-        raise NotImplementedError(
-            "support transforms through Switch choice maps are not ported "
-            f"yet: they come with {_COMBINATORS_SLICE}")
+        # The gate clamps the index as the combinator does, or an index
+        # out of range would mark every branch dead.
+        idx = torch.as_tensor(chm.idx).to(torch.int64).clamp(
+            0, len(chm.branches) - 1)
+        new_branches, found_any = [], False
+        for b, br in enumerate(chm.branches):
+            nb, found = _map_at(br, path, fn, _and_gate(gate, idx == b),
+                                branch + (b,))
+            new_branches.append(nb if found else br)
+            found_any = found_any or found
+        if not found_any:
+            return chm, False
+        return Switch(chm.idx, tuple(new_branches)), True
     if isinstance(chm, Filtered):
         # A lazy filter gates the leaf's existence by its selection.
         sel = chm.selection
         for comp in path:
             sel = sel(comp)
         new_inner, found = _map_at(chm.inner, path, fn,
-                                   _and_gate(gate, sel.check()))
+                                   _and_gate(gate, sel.check()), branch)
         return (Filtered(new_inner, chm.selection) if found else chm), found
     if isinstance(chm, (Empty, Choice)):
         return chm, False
@@ -242,15 +279,30 @@ def _safe_inverse(bij: Bijector, v, gate):
     return torch.where(_gate_like(gate, u), u, torch.zeros_like(u))
 
 
+def _resolve_spec(spec, branch: tuple) -> Bijector:
+    """The bijector of a leaf reached through the Switch branches
+    ``branch`` (outermost first): each ``PerBranch`` layer takes one
+    branch index, from the outside in."""
+    stack = tuple(branch)
+    while isinstance(spec, PerBranch):
+        if not stack:
+            raise ValueError(
+                "PerBranch transform spec used at an address that is not "
+                "under (enough) Switch nodes.")
+        spec, stack = spec.specs[stack[0]], stack[1:]
+    return get_bijector(spec)
+
+
 def _apply_transforms(chm: ChoiceMap, transforms: dict, direction: str,
                       batch_rank: int):
     fldj = None
     out = chm
     for addr, spec in transforms.items():
-        bij = get_bijector(spec)
         terms: list = []
 
-        def fn(v, gate, bij=bij, terms=terms):
+        def fn(v, gate, branch, spec=spec, terms=terms):
+            bij = _resolve_spec(spec, branch)
+            v = torch.as_tensor(v)
             if direction == "forward":
                 t = bij.fldj(v)
                 if gate is not None:
@@ -292,12 +344,17 @@ def infer_transforms(trace, *, exclude=None) -> dict:
     """A transforms dict from the support metadata of the distributions
     in ``trace``: nested ``@gen`` subtraces give tuple addresses, Scan and
     Vmap sites their inner site's path, Dimap and Mask their inner
-    trace's. ``exclude(addr) -> bool`` skips addresses (observed sites);
-    sites without support metadata or with non-float values stay
-    untransformed."""
+    trace's. Under a Switch with a tensor index the branches' supports
+    merge: agreeing branches share a plain spec, and an address whose
+    branches disagree (or that some branch lacks) gets a
+    :class:`PerBranch` spec; a Python-int index has only its branch's
+    choices, so only that branch is read. ``exclude(addr) -> bool``
+    skips addresses (observed sites); sites without support metadata or
+    with non-float values stay untransformed."""
     from genjax_torch.lang.combinators.dimap import DimapTrace
     from genjax_torch.lang.combinators.mask import MaskTrace
     from genjax_torch.lang.combinators.scan import ScanTrace
+    from genjax_torch.lang.combinators.switch import SwitchTrace
     from genjax_torch.lang.combinators.vmap import VmapTrace
     from genjax_torch.lang.distributions.distribution import (
         DistributionTrace,
@@ -306,12 +363,39 @@ def infer_transforms(trace, *, exclude=None) -> dict:
 
     out: dict = {}
 
-    def walk(tr, path):
+    def walk(tr, path, sink):
         if isinstance(tr, StaticTrace):
             for addr, sub in zip(tr.addresses, tr.subtraces):
-                walk(sub, path + (addr,))
+                walk(sub, path + (addr,), sink)
         elif isinstance(tr, (ScanTrace, VmapTrace, DimapTrace, MaskTrace)):
-            walk(tr.inner, path)
+            walk(tr.inner, path, sink)
+        elif isinstance(tr, SwitchTrace):
+            idx = tr.get_idx()
+            if isinstance(idx, int):
+                walk(tr.subtraces[idx], path, sink)
+                return
+            per = []
+            for sub in tr.subtraces:
+                d: dict = {}
+                walk(sub, path, d)
+                per.append(d)
+            seen: list = []  # first-seen order: the fldj sum's order
+            for d in per:
+                seen.extend(a for a in d if a not in seen)
+            for addr in seen:
+                specs = [d.get(addr, _ABSENT) for d in per]
+                present = [s for s in specs if s is not _ABSENT]
+                nested = any(isinstance(s, PerBranch) for s in present)
+                if (not nested and len(present) == len(specs)
+                        and all(_spec_equal(s, present[0])
+                                for s in present)):
+                    sink[addr] = present[0]
+                else:
+                    # Every Switch level with a PerBranch beneath gets
+                    # its own layer, so layers peel in step with the
+                    # branch stack (_resolve_spec).
+                    sink[addr] = PerBranch(tuple(
+                        None if s is _ABSENT else s for s in specs))
         elif isinstance(tr, DistributionTrace):
             v = tr.get_retval()
             if isinstance(v, Mask):
@@ -324,9 +408,11 @@ def infer_transforms(trace, *, exclude=None) -> dict:
             addr = path[0] if len(path) == 1 else path
             if exclude is not None and exclude(addr):
                 return
-            out[addr] = spec
+            # None (present, unconstrained) is kept through the walk so
+            # that a Switch merge tells it from an absent site.
+            sink[addr] = spec
 
-    walk(trace, ())
+    walk(trace, (), out)
     return {a: s for a, s in out.items() if s is not None}
 
 
@@ -334,7 +420,7 @@ def path_present(chm, addr) -> bool:
     """Whether an address (flat or tuple path) resolves to a value in
     ``chm``, by the ``Indexed``-transparent lookup of
     :func:`constrain_choices`."""
-    _, found = _map_at(chm, _addr_path(addr), lambda v, gate: v)
+    _, found = _map_at(chm, _addr_path(addr), lambda v, gate, branch: v)
     return found
 
 

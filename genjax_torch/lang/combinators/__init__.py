@@ -1,6 +1,6 @@
 """The combinators of the port: ``Vmap`` (with ``repeat``), ``Scan`` with
-the combinators derived from it, ``Dimap`` and ``MaskCombinator``.
-Switch, mix and or_else are not ported yet."""
+the combinators derived from it, ``Dimap``, ``MaskCombinator``, and
+``Switch`` with ``mix`` and ``or_else`` built on it."""
 
 from genjax_torch.lang.combinators.dimap import (
     Dimap,
@@ -10,6 +10,8 @@ from genjax_torch.lang.combinators.dimap import (
     map_retval,
 )
 from genjax_torch.lang.combinators.mask import MaskCombinator, MaskTrace, mask
+from genjax_torch.lang.combinators.mixture import mix
+from genjax_torch.lang.combinators.or_else import OrElse, or_else
 from genjax_torch.lang.combinators.repeat import repeat
 from genjax_torch.lang.combinators.scan import (
     Scan,
@@ -23,6 +25,7 @@ from genjax_torch.lang.combinators.scan import (
     reduce,
     scan,
 )
+from genjax_torch.lang.combinators.switch import Switch, SwitchTrace, switch
 from genjax_torch.lang.combinators.vmap import Vmap, VmapTrace, vmap
 
 __all__ = [
@@ -30,8 +33,11 @@ __all__ = [
     "DimapTrace",
     "MaskCombinator",
     "MaskTrace",
+    "OrElse",
     "Scan",
     "ScanTrace",
+    "Switch",
+    "SwitchTrace",
     "Vmap",
     "VmapTrace",
     "accumulate",
@@ -43,9 +49,12 @@ __all__ = [
     "mask",
     "masked_iterate",
     "masked_iterate_final",
+    "mix",
+    "or_else",
     "prepend_initial_acc",
     "reduce",
     "repeat",
     "scan",
+    "switch",
     "vmap",
 ]

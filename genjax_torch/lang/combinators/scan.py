@@ -16,6 +16,11 @@ the same (tensor-flag) path and the same draws as there.
 ``IndexRequest`` edits take ``_edit_index_fast``, the O(1) repair of one
 step that re-scores the next under the changed carry; under changed
 arguments they lower to the whole-chain request.
+
+A Scan of length 0 has no choices, score 0 and the initial carry as its
+final one; its stacked trace and outputs have a step axis of length 0,
+their shapes taken from one throwaway run of the inner function (eager
+PyTorch has no shape-only evaluation).
 """
 
 from __future__ import annotations
@@ -80,6 +85,19 @@ def _stack(items: list, batch: tuple, device):
     return tree_map(stack, *items)
 
 
+def _empty_steps(tree, batch: tuple, device):
+    """``tree`` as a stack of no steps: every tensor with a step axis of
+    length 0 after the batch; a Python value stays as it is."""
+    r = len(batch)
+
+    def empty(v):
+        if not isinstance(v, torch.Tensor):
+            return v
+        return shared(v, batch, device).unsqueeze(r).narrow(r, 0, 0)
+
+    return tree_map(empty, tree)
+
+
 def _step_input(xs, t: int, batch: tuple):
     """Step ``t`` of the scanned inputs: their step axis follows the
     batch axes, which every tensor argument carries."""
@@ -111,6 +129,8 @@ class ScanTrace(Trace[Any]):
         return torch.as_tensor(self.inner.get_score()).sum(dim=-1)
 
     def get_choices(self) -> ChoiceMap:
+        if self.n == 0:
+            return ChoiceMap.empty()
         return Indexed(self.inner.get_choices(), None, self.n,
                        batch_rank(self))
 
@@ -144,7 +164,8 @@ class Scan(GenerativeFunction[Any]):
         batch = tuple(key.shape[:-1])
         n = self._n(args, batch)
         if n == 0:
-            raise ValueError("Scan of length 0 is not ported")
+            return (self._empty(key, args),
+                    torch.zeros(batch, device=key.device))
         carry, trs, ws, outs = init, [], [], []
         for t in range(n):
             x = None if xs is None else _step_input(xs, t, batch)
@@ -159,6 +180,21 @@ class Scan(GenerativeFunction[Any]):
                           retval, n)
         return trace, sum(ws[1:], ws[0])
 
+    def _empty(self, key, args) -> ScanTrace:
+        """The trace of no steps, shaped by one discarded inner run on a
+        zero step input."""
+        init, xs = args
+        batch = tuple(key.shape[:-1])
+        r = len(batch)
+        x = None if xs is None else tree_map(
+            lambda v: torch.zeros(
+                batch + tuple(carries_batch(v, batch).shape[r + 1:]),
+                dtype=v.dtype, device=v.device), xs)
+        tr = self.inner.simulate(key, (init, x))
+        outs = _empty_steps(tr.get_retval()[1], batch, key.device)
+        return ScanTrace(self, _empty_steps(tr, batch, key.device), args,
+                         (init, outs), 0)
+
     def simulate(self, key, args: tuple) -> ScanTrace:
         zero = torch.zeros((), device=key.device)
         return self._run(key, args, lambda t, k, c, x: (
@@ -167,6 +203,12 @@ class Scan(GenerativeFunction[Any]):
     def assess(self, chm: ChoiceMap, args: tuple, batch: tuple = ()):
         init, xs = args
         batch = tuple(batch)
+        if self._n(args, batch) == 0:
+            device = next((v.device for v in tree_leaves(args)
+                           if isinstance(v, torch.Tensor)), None)
+            key = random.key(0, device=device).expand(batch + (2,))
+            return (torch.zeros(batch, device=device),
+                    self._empty(key, args).get_retval())
         carry, score, outs = init, None, []
         for t in range(self._n(args, batch)):
             x = None if xs is None else _step_input(xs, t, batch)
@@ -190,6 +232,8 @@ class Scan(GenerativeFunction[Any]):
                                     selection(torch.tensor(t,
                                                            device=key.device)))
             w = wt if w is None else w + wt
+        if w is None:
+            return torch.zeros_like(torch.as_tensor(trace.get_score()))
         return w
 
     def edit(self, key, trace: ScanTrace, request: EditRequest,

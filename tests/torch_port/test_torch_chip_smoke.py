@@ -1,0 +1,41 @@
+"""chip_smoke.py's measuring helpers, on the CPU.
+
+A profile on the card now and then holds no device event at all;
+``profiled`` then takes it again and, if no try saw the device, falls
+back to the calls' CUDA-event time with the device ops NaN, which the
+JSON record prints as ``null``. Here no try can see a device, so the
+fallback path runs, with ``cuda_ms`` and the synchronisation stubbed."""
+
+import json
+import math
+import os
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+import chip_smoke  # noqa: E402
+
+
+def test_profiled_falls_back_to_cuda_events(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps: 1.25)
+    calls = []
+    wall, busy, per_kernel, ops, launch_ms = chip_smoke.profiled(
+        lambda: calls.append(torch.ones(4).sum()), 2, tries=2)
+    # One warm-up call, then two tries of two calls each.
+    assert len(calls) == 5
+    assert busy == 1.25 and per_kernel == {} and math.isnan(ops)
+    assert wall >= 0.0 and launch_ms == 0.0
+    out = capsys.readouterr().out
+    assert "profile 1 of 2 saw no device time" in out
+    assert "profile 2 of 2 saw no device time" in out
+
+
+def test_finite_or_none_prints_null():
+    record = {"a": math.nan, "b": [1.5, math.inf, (2, -math.inf)],
+              "c": {"d": 3, "e": "x", "f": None}}
+    assert json.loads(json.dumps(chip_smoke.finite_or_none(record))) == {
+        "a": None, "b": [1.5, None, [2, None]],
+        "c": {"d": 3, "e": "x", "f": None}}

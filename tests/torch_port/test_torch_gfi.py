@@ -253,10 +253,11 @@ def test_language_errors():
     _, ct = _models(gt)
     with pytest.raises(gt.MissingAddress):
         ct.assess(C["x"].set(1.0), (0.0,))
-    # Edits are served now; the combinators still to come raise, naming
-    # their ROADMAP item.
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ct.switch(ct)
+    # The combinators are served now; marginal still raises, naming its
+    # ROADMAP item.
+    assert isinstance(ct.switch(ct), gt.Switch)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        ct.marginal()
     with pytest.raises(RuntimeError, match="@gen"):
         gt.normal(0.0, 1.0) @ "x"
 

@@ -4,8 +4,8 @@ gives the terms elementwise; summed, they are the JAX package's
 ``fldj``) to 1e-5; ``infer_transforms`` and ``resolve_transforms("auto")``
 on one model with plain, Scan and Dimap sites; ``constrain_choices``
 through a Scan site's ``Indexed`` layer under a chain batch against the
-JAX package's ``vmap``; and the Switch parts, which raise until the
-combinators slice."""
+JAX package's ``vmap``; and the Switch parts, served since the
+combinators slice (the PerBranch cases are in ``test_torch_switch.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -156,12 +156,20 @@ def test_masked_leaf_gates_its_jacobian():
 
 
 def test_switch_parts_wait_for_the_combinators_slice():
+    """The combinators slice has landed: a Switch choice map transforms
+    its live branch's leaf (the log-Jacobian gated by the index), and a
+    PerBranch spec resolves only under Switch nodes."""
     chm = gt.ChoiceMap.switch(torch.tensor(0), [gt.C["x"].set(1.0),
                                                  gt.C["x"].set(2.0)])
-    with pytest.raises(NotImplementedError, match="combinators slice"):
-        tt.constrain_choices(chm, {"x": "positive"})
-    with pytest.raises(NotImplementedError, match="combinators slice"):
+    _, fldj = tt.constrain_choices(chm, {"x": "positive"})
+    np.testing.assert_allclose(
+        float(fldj), float(torch.nn.functional.logsigmoid(
+            torch.tensor(1.0))), **TOL)
+    with pytest.raises(ValueError, match="under Switch nodes"):
         tt.get_bijector(tt.PerBranch(("positive", None)))
+    with pytest.raises(ValueError, match="not under"):
+        tt.constrain_choices(gt.C["x"].set(1.0),
+                             {"x": tt.PerBranch(("positive", None))})
     with pytest.raises(ValueError):
         tt.get_bijector("nope")
     with pytest.raises(KeyError):
