@@ -10,6 +10,9 @@ cross-chain adaptation, elliptical slice, support transforms,
 diagnostics; bench configs 2 and 8 in ``entry``), and the switch-and-models
 slice (Switch, mix, or_else; exact enumeration, posterior predictive; the
 model families of ``models`` with their oracles, SLDS-RBPF among them),
+and the particle-samplers slice (``ChangeTarget``, the GenSP / VI methods
+and ``marginal``, the row resamplers, PMMH, SMC², particle Gibbs, the
+trace-level particle filter and data-annealed SMC; bench config 7),
 with every kernel of the JAX package written by hand for Hopper
 (``ops/``). The package imports ``torch`` and never ``jax``.
 """
@@ -98,7 +101,8 @@ from genjax_torch.inference import (  # noqa: E402
 #: Entry points of ``genjax_torch.entry`` reachable from the package
 #: (``entry`` imports the package, so they load on first use).
 _ENTRY_POINTS = ("build_nuts_regression", "build_nuts_logreg",
-                 "build_slds_rbpf", "build_switch_mixture")
+                 "build_slds_rbpf", "build_switch_mixture", "build_smc2",
+                 "build_trace_pf", "build_data_smc")
 
 
 def __getattr__(name):

@@ -37,6 +37,8 @@ __all__ = [
     "normal",
     "erfinv_f32",
     "bernoulli",
+    "exponential",
+    "log1p_f32",
     "categorical",
     "gumbel",
     "gamma",
@@ -194,6 +196,76 @@ def normal(k: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
 def bernoulli(k: torch.Tensor, p, shape=()) -> torch.Tensor:
     """``jax.random.bernoulli``: ``uniform < p``."""
     return uniform(k, shape) < _f32(p, k.device)
+
+
+def _f32_bits(h: str) -> float:
+    return float(np.frombuffer(bytes.fromhex(h), ">f8")[0].astype(np.float32))
+
+
+# XLA's CPU ``log1p`` for f32 (its ``xla.log1p.f32``): below |x| < √2 − 1
+# the Cephes rational form, above it ``log(1 + x)`` by XLA's polynomial
+# ``log``; the constants are the f32 values of its IR, and the multiply-
+# adds that LLVM contracts there are single-rounding FMAs here.
+_LOG_P = tuple(_f32_bits(h) for h in (
+    "3FB2043760000000", "BFBD7A3700000000", "3FBDE4A340000000",
+    "BFBFCBA9E0000000", "3FC23D37E0000000", "BFC555CA00000000",
+    "3FC999D580000000", "BFCFFFFF80000000", "3FD5555540000000"))
+_LOG_C1, _LOG_C2 = _f32_bits("BF2BD01060000000"), 0.693359375
+_SQRT_HALF = _f32_bits("3FE6A09E60000000")
+_LOG1P_SMALL = _f32_bits("3FDA8279A0000000")
+_LOG1P_DEN = tuple(_f32_bits(h) for h in (
+    "402E2035A0000000", "4054C30B60000000", "406BB865A0000000",
+    "4073519460000000", "406B0DB140000000", "404E0F3040000000"))
+_LOG1P_NUM = tuple(_f32_bits(h) for h in (
+    "3F07BC0960000000", "3FDFE818A0000000", "401A509F40000000",
+    "403DE97380000000", "404E798EC0000000", "404C8E75A0000000",
+    "40340A2020000000"))
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """``log1p`` of an f32 tensor as XLA computes it on the CPU, bit for
+    bit (torch's own is 1 ulp off for about one input in fourteen).
+    Another device takes ``torch.log1p``."""
+    if x.device.type != "cpu":
+        return torch.log1p(x)
+    dev = x.device
+
+    def c(v):
+        return _f32(v, dev)
+
+    v = x + 1.0
+    bits = torch.clamp(v, min=float(np.finfo(np.float32).tiny)).view(
+        torch.int32)
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    low = m < _SQRT_HALF
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0 - low.to(torch.float32)
+    t = (m - 1.0) + torch.where(low, m, c(0.0))
+    z = t * t
+    z3 = z * t
+    p = [_fma(_fma(t, c(_LOG_P[i]), c(_LOG_P[i + 1])), t, c(_LOG_P[i + 2]))
+         for i in (0, 3, 6)]
+    y = _fma(_fma(_fma(p[0], z3, p[1]), z3, p[2]), z3, e * _LOG_C1)
+    large = _fma(e, c(_LOG_C2), _fma(z, c(-0.5), t) + y)
+    # XLA's NaN here is all ones.
+    nan = torch.tensor(-1, dtype=torch.int32, device=dev).view(torch.float32)
+    large = torch.where(v > 0, large, nan)
+    large = torch.where(v == 0, c(-math.inf), large)
+    large = torch.where(v == math.inf, c(math.inf), large)
+    x2 = x * x
+    den = x + _LOG1P_DEN[0]
+    for d in _LOG1P_DEN[1:]:
+        den = _fma(den, x, c(d))
+    num = _fma(c(_LOG1P_NUM[0]), x, c(_LOG1P_NUM[1]))
+    for n in _LOG1P_NUM[2:]:
+        num = _fma(num, x, c(n))
+    small = x + _fma(x2, c(-0.5), (x * x2) * (num / den))
+    return torch.where(x.abs() < _LOG1P_SMALL, small, large)
+
+
+def exponential(k: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.exponential``: ``-log1p(-u)``, ``u`` uniform on [0, 1);
+    bit for bit on the CPU (:func:`log1p_f32`)."""
+    return -log1p_f32(-uniform(k, shape))
 
 
 def gumbel(k: torch.Tensor, shape=()) -> torch.Tensor:

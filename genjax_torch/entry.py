@@ -36,7 +36,15 @@
 - :func:`build_switch_mixture`: a three-component ``mix`` of branches
   with different addresses, observed once, through ``ImportanceK`` SIR
   and through MH by ``Regenerate`` of the mixture; its posterior is the
-  closed form :func:`switch_mixture_exact`.
+  closed form :func:`switch_mixture_exact`;
+- :func:`build_smc2`: bench config 7, SMC² on the LGSSM with an unknown
+  transition coefficient, against the exact grid posterior
+  :func:`smc2_oracle` (counterpart of
+  ``benchmarks/run_all.py::config7_smc2``);
+- :func:`build_trace_pf`: the trace-level particle filter on the same
+  LGSSM as a ``Scan`` model, against the Kalman log-likelihood;
+- :func:`build_data_smc`: data-annealed SMC on the beta-bernoulli coins
+  model, one flip a step, against its closed-form evidence.
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (or another device); without a card it raises rather
@@ -59,12 +67,21 @@ from genjax_torch.inference import ImportanceK, Target, mh, run_nuts
 from genjax_torch.inference.smc import batched_importance
 from genjax_torch.inference.exact_testbed import sample_problem
 from genjax_torch.inference.pf import fused_particle_filter, particle_filter
+from genjax_torch.inference.data_smc import data_annealed_smc
+from genjax_torch.inference.smc2 import smc2
 from genjax_torch.inference.smc_sampler import tempered_smc
+from genjax_torch.inference.trace_pf import trace_particle_filter
 from genjax_torch.lang.distributions.discrete_hmm import (
     DiscreteHMM,
     DiscreteHMMConfiguration,
 )
 from genjax_torch.models.hmm import hmm_bootstrap_filter, hmm_model
+from genjax_torch.models.ssm import (
+    kalman_filter,
+    lgssm_grid_posterior,
+    lgssm_model,
+    simulate_lgssm_data,
+)
 from genjax_torch.models.slds import (
     SLDSParams,
     simulate_slds_data,
@@ -106,6 +123,15 @@ __all__ = [
     "switch_mixture_model",
     "switch_mixture_exact",
     "build_switch_mixture",
+    "lgssm_observations",
+    "smc2_model",
+    "smc2_oracle",
+    "build_smc2",
+    "build_trace_pf",
+    "coins_model",
+    "coins_observations",
+    "coins_exact_log_z",
+    "build_data_smc",
 ]
 
 
@@ -660,3 +686,141 @@ def build_switch_mixture(n_particles: int = 2 ** 20, n_chains: int = 2 ** 19,
         return comp, m, accepted / (n_chains * n_mh_steps)
 
     return run_sir, run_mh, target
+
+
+#: Config 7 (``benchmarks/run_all.py:439-482``): the 1-D LGSSM
+#: ``x_t = a·x_{t-1} + N(0, Q)``, ``y_t = x_t + N(0, R)`` with the true
+#: coefficient 0.7, its observations from ``simulate_lgssm_data(key(11),
+#: ...)``, a uniform prior on (−0.95, 0.95) for ``a`` and a random-walk
+#: proposal of 0.15.
+SMC2_A, SMC2_Q, SMC2_R = 0.7, 0.4, 0.4
+SMC2_DATA_SEED, SMC2_PROPOSAL, SMC2_BOUND = 11, 0.15, 0.95
+
+
+def lgssm_observations(n_steps: int = 50, device=None) -> torch.Tensor:
+    """Config 7's observations, drawn on the CPU (so every device filters
+    the same data) and moved to ``device``."""
+    _, ys = simulate_lgssm_data(random.key(SMC2_DATA_SEED), SMC2_A, SMC2_Q,
+                                SMC2_R, n_steps)
+    return ys.to(_device(device))
+
+
+def smc2_model():
+    """Config 7's model for :func:`~genjax_torch.inference.smc2.smc2`, the
+    θ axis leading every call: ``(init_sampler, propagate, loglik,
+    prior_sample, log_prior)``."""
+    sq = float(np.sqrt(np.float32(SMC2_Q)))
+    sr = float(np.sqrt(np.float32(SMC2_R)))
+    log_width = float(np.log(np.float32(2 * SMC2_BOUND)))
+
+    def init_sampler(keys, a, n):
+        return sq * random.normal(keys, (n,))
+
+    def propagate(keys, a, xs):
+        return a[:, None] * xs + sq * random.normal(keys, xs.shape[1:])
+
+    def loglik(a, xs, y):
+        return g.normal.logpdf(y, xs, sr)
+
+    def prior_sample(keys):
+        return random.uniform(keys, (), minval=-SMC2_BOUND,
+                              maxval=SMC2_BOUND)
+
+    def log_prior(a):
+        return torch.where(a.abs() < SMC2_BOUND,
+                           torch.full_like(a, -log_width),
+                           torch.full_like(a, -math.inf))
+
+    return init_sampler, propagate, loglik, prior_sample, log_prior
+
+
+def smc2_oracle(ys) -> dict:
+    """The exact posterior of config 7's coefficient by Kalman quadrature
+    on ``linspace(−0.949, 0.949, 191)`` in float64: its mean, sd and the
+    log evidence."""
+    ys = torch.as_tensor(ys).detach().cpu().double()
+    mean, std, log_ev = lgssm_grid_posterior(
+        ys, SMC2_Q, SMC2_R, torch.linspace(-0.949, 0.949, 191,
+                                           dtype=torch.float64))
+    return {"mean": float(mean), "std": float(std), "log_ev": float(log_ev)}
+
+
+def build_smc2(n_theta: int = 1024, n_x: int = 1024, n_steps: int = 50,
+               device=None):
+    """Bench config 7: SMC² with ``n_theta`` parameter particles, each an
+    ``n_x``-particle bootstrap filter, over ``n_steps`` observations.
+    Returns ``(run, oracle, ys)``: ``run(key) -> SMC2Result``, the work
+    is ``n_theta·n_x·n_steps`` inner particle-steps."""
+    device = _device(device)
+    ys = lgssm_observations(n_steps, device)
+    sampler = smc2(*smc2_model(), n_theta=n_theta, n_x=n_x,
+                   proposal=SMC2_PROPOSAL)
+
+    def run(key):
+        return sampler(key, ys)
+
+    return run, smc2_oracle(ys), ys
+
+
+def build_trace_pf(n_particles: int = 2 ** 18, n_steps: int = 50,
+                   device=None):
+    """The trace-level particle filter on config 7's LGSSM at the true
+    coefficient, ``lgssm_model(0.7, 0.4, 0.4, n_steps)``, observed on
+    config 7's data. Returns ``(run, exact_log_z, ys)``: ``run(key) ->
+    TracePFResult``; the exact log Z is the float64 Kalman filter's.
+
+    The futures are refreshed after each resample (the filter is then
+    exactly the bootstrap filter): over 50 steps the shared-future form
+    copies one drawn future into every descendant of a resampled
+    particle, and the ensemble's later steps collapse onto a few paths."""
+    device = _device(device)
+    ys = lgssm_observations(n_steps, device)
+    model = lgssm_model(SMC2_A, SMC2_Q, SMC2_R, n_steps)
+    pf = trace_particle_filter(model, (0.0, None), "y", ys, n_particles,
+                               refresh_future=True)
+    exact, _ = kalman_filter(ys.detach().cpu().double(), SMC2_A, SMC2_Q,
+                             SMC2_R, mu0=0.0, p0=0.0)
+    return pf, float(exact), ys
+
+
+#: The coins of the JAX package's data-annealed SMC tests: p ~ Beta(2, 2)
+#: and flips of p, observed in this pattern, repeated.
+COINS_PATTERN = (True, True, False, True, True)
+
+
+def coins_observations(n_flips: int) -> list:
+    return [COINS_PATTERN[i % len(COINS_PATTERN)] for i in range(n_flips)]
+
+
+def coins_model(n_flips: int):
+    """``p ~ Beta(2, 2)``, ``v{i} ~ Flip(p)`` for ``i < n_flips``."""
+    @g.gen
+    def coins():
+        p = g.beta(2.0, 2.0) @ "p"
+        for i in range(n_flips):
+            _ = g.flip(p) @ f"v{i}"
+
+    return coins
+
+
+def coins_exact_log_z(obs) -> float:
+    """log P(obs) = log B(2 + h, 2 + t) − log B(2, 2)."""
+    h = sum(bool(o) for o in obs)
+    t = len(obs) - h
+    return (math.lgamma(2 + h) + math.lgamma(2 + t) - math.lgamma(4 + h + t)
+            - (2 * math.lgamma(2) - math.lgamma(4)))
+
+
+def build_data_smc(n_particles: int = 2 ** 19, n_flips: int = 32,
+                   n_moves: int = 1, device=None):
+    """Data-annealed SMC on :func:`coins_model`, one flip a step, with
+    ``n_moves`` MH moves of ``p`` by ``Regenerate`` after each. Returns
+    ``(run, exact_log_z)``: ``run(key) -> DataSMCResult``."""
+    device = _device(device)
+    obs = coins_observations(n_flips)
+    schedule = [g.C[f"v{i}"].set(o) for i, o in enumerate(obs)]
+    run = data_annealed_smc(
+        coins_model(n_flips), (), schedule, n_particles,
+        make_request=lambda: g.Regenerate(g.Selection.at["p"]),
+        n_moves=n_moves)
+    return run, coins_exact_log_z(obs)

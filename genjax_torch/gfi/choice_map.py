@@ -367,29 +367,54 @@ def _lane_slice(tree, pos, batch_rank: int):
     return tree_map(pick, tree)
 
 
-def lift_values(chm: "ChoiceMap", batch: tuple, device=None) -> "ChoiceMap":
-    """``chm`` with every value given the leading batch axes ``batch`` as
-    a zero-stride view (``expand``, no copy): a caller's constraint made
+def lift_values(chm: "ChoiceMap", batch: tuple, device=None,
+                outer: tuple = ()) -> "ChoiceMap":
+    """``chm`` with every value given the batch axes ``batch`` as a
+    zero-stride view (``expand``, no copy): a caller's constraint made
     the same for every execution of a batched run. A Python value becomes
     a tensor on ``device``. Lane nodes (:class:`Indexed`) record the batch
-    rank they gain."""
+    rank they gain.
+
+    ``outer``: the batch the values already carry; the new axes go right
+    behind it (a nested run's particle axis behind its caller's batch).
+    A 0-d value is the same in every execution and is expanded over
+    both; any other value must lead with ``outer``."""
     if not batch:
         return chm
+    batch, outer = tuple(batch), tuple(outer)
+    r = len(outer)
 
     def lift(v):
         t = v if isinstance(v, torch.Tensor) else torch.as_tensor(
             v, device=device)
-        return t.expand(tuple(batch) + tuple(t.shape))
+        if r and t.ndim == 0:
+            return t.expand(outer + batch)
+        if tuple(t.shape[:r]) != outer:
+            raise ValueError(
+                f"a value of shape {tuple(t.shape)} under the batch {outer}: "
+                "every tensor of a batched call leads with the batch")
+        t = t.reshape(outer + (1,) * len(batch) + tuple(t.shape[r:]))
+        return t.expand(outer + batch + tuple(t.shape[r + len(batch):]))
+
+    def lift_flag(f):
+        if not isinstance(f, torch.Tensor) or f.ndim < r or not r:
+            return f
+        return lift(f)
 
     def go(c):
         if isinstance(c, Choice):
             v = c.v
             if isinstance(v, Mask):
-                return Choice(Mask(tree_map(lift, v.value), v.flag))
+                return Choice(Mask(tree_map(lift, v.value),
+                                   lift_flag(v.flag)))
             return Choice(tree_map(lift, v))
         if isinstance(c, Static):
             return Static(tuple(go(sub) for sub in c.submaps), c.keys)
         if isinstance(c, Indexed):
+            if c.batch_rank < r:
+                raise ValueError(
+                    "a lane node without the caller's batch in a nested "
+                    "batched run: lift it to the batch first")
             return Indexed(go(c.inner), c.idx, c.n,
                            c.batch_rank + len(batch))
         if isinstance(c, Or):

@@ -2,8 +2,8 @@
 (counterpart of ``genjax_tpu/gfi/gfn.py``), with the postfix methods of
 the combinators (``vmap``, ``repeat``, ``scan``, ``accumulate``,
 ``reduce``, ``iterate``, ``iterate_final``, ``masked_iterate``, ``mask``,
-``dimap``, ``map``, ``contramap``, ``switch``, ``mix``, ``or_else``).
-``marginal`` raises, naming the ROADMAP item that ports it."""
+``dimap``, ``map``, ``contramap``, ``switch``, ``mix``, ``or_else``,
+``marginal``)."""
 
 from __future__ import annotations
 
@@ -123,7 +123,14 @@ class GenerativeFunction(Pytree, Generic[R]):
       resampling and the MH select skip);
     - a combinator puts its lane or step axis right after ``B``: keys
       ``B + (n, 2)``, traces ``B + (n,) + ...``, and the ``Indexed``
-      choice maps it builds record ``batch_rank = len(B)``.
+      choice maps it builds record ``batch_rank = len(B)``;
+    - an inference algorithm nested in a batched execution (a
+      ``Marginal`` at a site of a batched ``@gen`` function, or the
+      proposal of ``ImportanceK``) runs once per execution: its
+      particles carry their axis ``K`` right after ``B`` (traces
+      ``B + (K,) + ...``, weights ``B + (K,)``), as a combinator's lanes
+      do, and the target's per-execution values are lifted to
+      ``B + (K,)`` behind the batch they carry (``inference/smc.py``).
 
     A batched ``@gen`` or distribution call at top level (no ``@gen``
     body running) refuses a tensor argument that does not lead with
@@ -282,10 +289,14 @@ class GenerativeFunction(Pytree, Generic[R]):
         return or_else(gen_fn)(self)
 
     def marginal(self, *, selection=None, algorithm=None):
-        raise NotImplementedError(
-            "GenerativeFunction.marginal is not ported yet: it needs the "
-            "GenSP methods of SMCAlgorithm, which come with ChangeTarget "
-            "(ROADMAP queue 1 item 4)")
+        from genjax_torch.inference.sp import Marginal
+
+        if selection is not None and not isinstance(selection, Selection):
+            raise TypeError(
+                "marginal(selection=...) expects a Selection, got "
+                f"{type(selection).__name__}: {selection!r}.")
+        sel = selection if selection is not None else Selection.all()
+        return Marginal(self, Pytree.const(sel), algorithm)
 
 
 @Pytree.dataclass

@@ -1,9 +1,13 @@
-"""Inference: targets, importance sampling / SIR, particle filters, MH,
-the tempered SMC samplers, gradient MCMC (HMC, MALA, NUTS with
-cross-chain adaptation, elliptical slice, support transforms and
-diagnostics), exact enumeration and posterior predictive sampling."""
+"""Inference: targets, importance sampling / SIR with proposals,
+``ChangeTarget`` and the GenSP / VI methods, ``Marginal``, particle
+filters, the row resamplers, MH, the tempered SMC samplers, the particle
+samplers (PMMH, SMC², particle Gibbs, the trace-level particle filter,
+data-annealed SMC), gradient MCMC (HMC, MALA, NUTS with cross-chain
+adaptation, elliptical slice, support transforms and diagnostics), exact
+enumeration and posterior predictive sampling."""
 
 from genjax_torch.inference.adaptation import run_nuts, warmup_chains
+from genjax_torch.inference.data_smc import DataSMCResult, data_annealed_smc
 from genjax_torch.inference.diagnostics import (
     ess_autocorr,
     split_rhat,
@@ -14,6 +18,19 @@ from genjax_torch.inference.enumerative import (
     enumerate_posterior,
 )
 from genjax_torch.inference.mcmc import chain, mh, multi_chain
+from genjax_torch.inference.pgibbs import (
+    ParticleGibbsResult,
+    TraceParticleGibbsResult,
+    conditional_bootstrap_filter,
+    particle_gibbs,
+    trace_csmc,
+    trace_particle_gibbs,
+)
+from genjax_torch.inference.pmmh import (
+    PMMHResult,
+    gaussian_walk_proposal,
+    pmmh,
+)
 from genjax_torch.inference.predictive import posterior_predictive
 from genjax_torch.inference.requests import (
     HMC,
@@ -41,6 +58,7 @@ from genjax_torch.inference.pf import (
     particle_filter,
 )
 from genjax_torch.inference.smc import (
+    ChangeTarget,
     Importance,
     batched_importance,
     invariant_leaf_mask,
@@ -49,15 +67,24 @@ from genjax_torch.inference.smc import (
     SMCAlgorithm,
     effective_sample_size,
     resample_indices,
+    resample_indices_rows,
+    resample_indices_sorted,
     resample_tree,
+    resample_values,
+    resample_values_rows,
     systematic_offspring_counts,
     systematic_offspring_cumulative,
 )
+from genjax_torch.inference.smc2 import SMC2Result, smc2
 from genjax_torch.inference.smc_sampler import (
     TemperedSMCResult,
     annealed_importance_sampling,
     tempered_smc,
     waste_free_tempered_smc,
+)
+from genjax_torch.inference.trace_pf import (
+    TracePFResult,
+    trace_particle_filter,
 )
 from genjax_torch.inference.sp import (
     Algorithm,
@@ -69,6 +96,26 @@ from genjax_torch.inference.sp import (
 
 __all__ = [
     "Algorithm",
+    "ChangeTarget",
+    "DataSMCResult",
+    "PMMHResult",
+    "ParticleGibbsResult",
+    "SMC2Result",
+    "TracePFResult",
+    "TraceParticleGibbsResult",
+    "conditional_bootstrap_filter",
+    "data_annealed_smc",
+    "gaussian_walk_proposal",
+    "particle_gibbs",
+    "pmmh",
+    "resample_indices_rows",
+    "resample_indices_sorted",
+    "resample_values",
+    "resample_values_rows",
+    "smc2",
+    "trace_csmc",
+    "trace_particle_filter",
+    "trace_particle_gibbs",
     "Bijector",
     "EllipticalSlice",
     "EnumerationResult",

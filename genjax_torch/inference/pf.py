@@ -21,7 +21,7 @@ import torch
 from genjax_torch.core import random
 from genjax_torch.core.pytree import tree_leaves, tree_map
 from genjax_torch.gfi.gfn import GenerativeFunction
-from genjax_torch.inference.smc import resample_tree
+from genjax_torch.inference.smc import _step_keys, resample_tree
 from genjax_torch.ops.fused_step import CudaModel, fused_step
 
 __all__ = [
@@ -38,12 +38,11 @@ class FilterState(NamedTuple):
     log_z: torch.Tensor
 
 
-def _step_keys(key, n_steps: int):
+def _filter_keys(key, n_steps: int):
     """``(k_init, k_res[t], k_prop[t])`` for ``t < n_steps``: JAX's
     ``split(key)`` then ``split(fold_in(k_scan, t))`` per step."""
     k_init, k_scan = random.split(key).unbind(-2)
-    steps = torch.arange(n_steps, dtype=torch.int64, device=key.device)
-    k_res, k_prop = random.split(random.fold_in(k_scan, steps)).unbind(-2)
+    k_res, k_prop = _step_keys(k_scan, n_steps, 2).unbind(-2)
     return k_init, k_res, k_prop
 
 
@@ -80,7 +79,7 @@ def particle_filter(
 
     def run(key, observations):
         n_steps = tree_leaves(observations)[0].shape[0]
-        k_init, k_res, k_prop = _step_keys(key, n_steps)
+        k_init, k_res, k_prop = _filter_keys(key, n_steps)
         states, log_ws = init(k_init if batched else per_particle(k_init))
         log_ws = torch.as_tensor(log_ws, device=key.device).to(
             torch.float32).expand(n_particles).clone()
@@ -136,7 +135,7 @@ def fused_particle_filter(
 
     def run(key, observations):
         n_steps = observations.shape[0]
-        k_init, k_res, k_prop = _step_keys(key, n_steps)
+        k_init, k_res, k_prop = _filter_keys(key, n_steps)
         xs = init(k_init).to(state_dtype)
         dev = xs.device
         if dev.type != "cpu" and cuda_model is None:

@@ -253,11 +253,12 @@ def test_language_errors():
     _, ct = _models(gt)
     with pytest.raises(gt.MissingAddress):
         ct.assess(C["x"].set(1.0), (0.0,))
-    # The combinators are served now; marginal still raises, naming its
-    # ROADMAP item.
+    # The combinators and marginal are served now; marginal refuses a
+    # selection that is not a Selection, as the JAX package does.
     assert isinstance(ct.switch(ct), gt.Switch)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ct.marginal()
+    assert isinstance(ct.marginal(), gt.inference.Marginal)
+    with pytest.raises(TypeError, match="expects a Selection"):
+        ct.marginal(selection="x")
     with pytest.raises(RuntimeError, match="@gen"):
         gt.normal(0.0, 1.0) @ "x"
 

@@ -323,34 +323,38 @@ def test_csmc_keeps_the_retained_particle_last():
 def test_unported_paths_raise():
     model = E.quickstart_model()
     target = Target(model, (2.0, 2.0), gt.C["v"].set(True))
-    with pytest.raises(NotImplementedError, match="ChangeTarget"):
+    # ChangeTarget is ported: the estimate is finite. Named distribution
+    # parameters are not, and raise.
+    assert bool(torch.isfinite(
         ImportanceK(target, k_particles=4).estimate_normalizing_constant(
-            R.key(0), target)
+            R.key(0), target)))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        gt.normal(loc=0.0, scale=1.0)
     marg = Marginal(model, gt.Const(gt.Selection.at["p"]))
     with pytest.raises(TypeError, match="Marginal"):
         Target(marg, (2.0, 2.0), gt.C["v"].set(True))
 
 
 def test_port_imports_without_jax():
+    """Every module of the port, found by walking the package (so a
+    module added later is covered without editing this list), imports
+    with ``jax`` made unimportable, and none of them loads ``jax`` or
+    ``genjax_tpu``."""
     code = (
-        "import sys; sys.modules['jax'] = None\n"
-        "import genjax_torch, genjax_torch.entry, genjax_torch.interop\n"
-        "from genjax_torch.ops import cdf_counts, fused_step, logmatmul, "
-        "expand_adaptive\n"
-        "import genjax_torch.core.scan, genjax_torch.models.hmm\n"
-        "import genjax_torch.inference.exact_testbed\n"
-        "import genjax_torch.inference.smc_sampler, "
-        "genjax_torch.inference.mcmc, genjax_torch.lang.combinators\n"
-        "import genjax_torch.lang.distributions.discrete_hmm\n"
+        "import sys, importlib, pkgutil; sys.modules['jax'] = None\n"
+        "import genjax_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "genjax_torch.__path__, 'genjax_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or "
         "m.startswith('genjax_tpu') for m, v in sys.modules.items() "
         "if v is not None)\n"
-        "print('ok')\n"
+        "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert int(out.stdout.strip()) >= 60
 
 
 @pytest.mark.parametrize("call", [
