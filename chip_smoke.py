@@ -109,7 +109,25 @@ Phases (each prints one line; any failure exits non-zero):
      64 keys against the exact 0.5; ChangeTarget from the prior to the
      observed target against the posterior mean 0.6; particle Gibbs with
      ancestor sampling (256 chains x 128 particles x 50 steps x 100
-     sweeps) on config 7's data against the RTS smoother (4 MCSE).
+     sweeps) on config 7's data against the RTS smoother (4 MCSE);
+ 24. bench config 5 (ADEV VI, 65536 fits x 100 steps x 8 ELBO samples)
+     through build_adev_vi: every fit's first gradient against 4 v0, the
+     final v against v0 (1 - 4e-3)^100, card vs CPU at 64 x 10;
+ 25. bench config 9 (ADEV VI of a 512 -> 1024 -> 1 tanh network on 8192
+     points, 500 Adam steps, f32 with TF32 off) through build_bnn_vi: the
+     first ADEV gradient against the hand-written reparameterized one,
+     the two sites' noise uncorrelated, the -ELBO's fall over the fit;
+ 26. bench config 10 (SVGD, 4096 particles x 600 steps, 1024 x 64
+     regression) through build_svgd against the exact posterior mean,
+     and _rbf_phi at N = 512 against float64 pairs;
+ 27. parallel tempering (build_pt: config 6's model, 4096 ladders x 16
+     rungs, 200 + 200 steps) within 4 MCSE of the closed form, and MAP
+     with the Laplace approximation (build_map_laplace) on config 10's
+     regression against its exact mean, covariance and evidence.
+Phases 24-27 each print the wall of a run (the median of 3), its rate,
+a profiled short run's device-busy time, idle share and device ops a
+step, and the peak device memory; none launches one of the four kernels,
+as none reaches a Pallas kernel in the JAX package.
 Each path's kernel launches are counted from 0 just before it runs. The
 last three lines are the card's line, the kernels' JSON record and the
 result line.
@@ -1482,6 +1500,414 @@ def gensp_phase(dev, card: str) -> dict:
     return out
 
 
+
+#: Phases 24-27's bounds, from the CPU readings of tools/vi_bounds.py
+#: (PERF.md §2): config 5's first mean gradient against 4 v0 (the JAX
+#: package reads 5.6e-7 and the port 4.8e-7 at 64 fits x 10 steps) and
+#: its final v against v0 (1 − 4e-3)^100 (2.4e-7 and 2.0e-7 relative).
+C5_FIRST_GRAD_BOUND = 1e-5
+C5_FINAL_REL_BOUND = 1e-5
+C5_CARD_CPU_BOUND = 1e-6
+#: Config 9: the ADEV gradient against the hand-written reparameterized
+#: gradient (relative to each parameter's largest entry); the two sites'
+#: noise uncorrelated; the 16-sample −ELBO after 500 steps at most half
+#: its value at step 0 (the port on the CPU at 64 -> 128 x 1024 and
+#: 128 -> 256 x 2048 ends at 0.078 and 0.046 of it).
+C9_GRAD_REL_BOUND = 1e-4
+C9_CORR_BOUND = 0.05
+C9_NEG_ELBO_FRACTION = 0.5
+#: Config 10: max |ensemble mean − exact mean| (the JAX package at 4096 x
+#: 600 on keys 12, 13, 14: 0.0027, 0.00064, 0.0017); _rbf_phi at N = 512
+#: against float64 pairs, relative to the largest entry (the port on the
+#: CPU: 1.6e-6).
+C10_MEAN_BOUND = 0.01
+C10_PHI_REL_BOUND = 1e-4
+#: MAP / Laplace on config 10's regression against the closed form (the
+#: JAX package at 1000 steps: MAP 4.4e-5, covariance 3.1e-9, log Z
+#: 7.9e-6).
+MAP_MEAN_BOUND = 1e-3
+MAP_COV_BOUND = 1e-6
+MAP_LOGZ_BOUND = 1e-3
+#: The full widths of phases 24-27: config 5 (fits, steps, ELBO samples),
+#: config 9 (din, dh, points, steps), config 10 (particles, steps, points,
+#: dimensions), parallel tempering (ladders, rungs, kept steps, burn-in)
+#: and MAP (points, dimensions, Adam steps).
+C5_SIZE = (65536, 100, 8)
+C9_SIZE = (512, 1024, 8192, 500)
+C10_SIZE = (4096, 600, 1024, 64)
+PT_SIZE = (4096, 16, 200, 200)
+MAP_SIZE = (1024, 64, 1000)
+
+
+def _no_kernel(launches: dict, what: str):
+    """The JAX package reaches no Pallas kernel on these paths: the port
+    launches none of its four either."""
+    check(not any(launches.values()), f"{what} launched a kernel: "
+          f"{launches}")
+
+
+def _median_wall(first: float, fn, n: int = 3) -> tuple:
+    walls = [first] + _timed_runs(fn, n - 1) if first is not None else \
+        _timed_runs(fn, n)
+    return walls, sorted(walls)[len(walls) // 2]
+
+
+def adev_vi_phase(dev, card: str, zero_counts, counts) -> dict:
+    """Phase 24: bench config 5, 65536 fits x 100 steps x 8 ELBO samples,
+    against the closed-form trajectory; card vs CPU at 64 x 10."""
+    import torch
+
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+
+    fits, steps, samples = C5_SIZE
+    run, v0 = E.build_adev_vi(fits, steps, samples, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    v, first = run(random.key(0, device=dev))
+    torch.cuda.synchronize()
+    full_wall = time.perf_counter() - t0
+    launches = counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    _no_kernel(launches, "config 5")
+    v0c = v0.double().cpu()
+    exact = torch.tensor(E.adev_vi_exact(v0c.numpy(), steps))
+    first_err = float((first.double().cpu() - 4.0 * v0c).abs().max())
+    final_rel = float(((v.double().cpu() - exact).abs() / exact).max())
+    check(first_err <= C5_FIRST_GRAD_BOUND,
+          f"config 5: first gradient {first_err} from 4 v0")
+    check(final_rel <= C5_FINAL_REL_BOUND,
+          f"config 5: final v {final_rel} (relative) from the closed form")
+    key = random.key(3)
+    card_v, card_g = E.build_adev_vi(64, 10, samples, device=dev)[0](
+        key.to(dev))
+    cpu_v, cpu_g = E.build_adev_vi(64, 10, samples, device="cpu")[0](key)
+    card_cpu = max(float((card_v.cpu() - cpu_v).abs().max()),
+                   float((card_g.cpu() - cpu_g).abs().max()) * 1e-3)
+    check(card_cpu <= C5_CARD_CPU_BOUND,
+          f"config 5: card vs CPU at 64 x 10 differ by {card_cpu}")
+    # The rate: a run of the same width cut to 10 steps (the work a step
+    # does does not depend on the step), the median of 3.
+    t_steps = min(10, steps)
+    run_t = E.build_adev_vi(fits, t_steps, samples, device=dev)[0]
+    walls, wall = _median_wall(None, lambda i: run_t(
+        random.key(10 + i, device=dev)))
+    rate = fits * t_steps / wall
+    p_steps = 2
+    run_p = E.build_adev_vi(fits, p_steps, samples, device=dev)[0]
+    run_p(random.key(20, device=dev))
+    p_wall, busy, ops = device_busy(lambda: run_p(random.key(21, device=dev)))
+    out = {"fits": fits, "steps": steps, "elbo_samples": samples,
+           "first_grad_err": first_err, "final_rel_err": final_rel,
+           "card_cpu_diff": card_cpu, "launches": launches,
+           "full_run_s": full_wall,
+           "full_run_grad_steps_per_s": fits * steps / full_wall,
+           "timed_steps": t_steps, "wall_ms": [w * 1e3 for w in walls],
+           "grad_steps_per_s": rate, "profiled_wall_ms": p_wall,
+           "device_busy_ms": busy, "idle_share": 1.0 - busy / p_wall,
+           "device_ops_per_step": ops / p_steps, "peak_gb": peak}
+    print(f"[24 config 5] {card}: ADEV VI {fits} fits x {steps} steps x "
+          f"{samples} ELBO samples: first gradient max |g - 4 v0| "
+          f"{first_err:.3g} (bound {C5_FIRST_GRAD_BOUND}); final v max rel "
+          f"err {final_rel:.3g} vs v0 (1 - 4e-3)^{steps} (bound "
+          f"{C5_FINAL_REL_BOUND}); card vs CPU at 64 x 10 {card_cpu:.3g} "
+          f"(bound {C5_CARD_CPU_BOUND}); launches {launches}; full run "
+          f"{full_wall:.2f} s ({fits * steps / full_wall:.6g} grad-steps/s); "
+          f"{t_steps}-step runs {[round(w * 1e3, 1) for w in walls]} ms "
+          f"(median {wall * 1e3:.1f} ms), {rate:.6g} grad-steps/s; profiled "
+          f"{p_steps}-step run {p_wall:.1f} ms, device busy {busy:.3f} ms, "
+          f"idle share {out['idle_share']:.4f}, "
+          f"{out['device_ops_per_step']:.0f} device ops a step; peak device "
+          f"memory {peak:.3f} GB above what earlier phases hold", flush=True)
+    return out
+
+
+def bnn_vi_phase(dev, card: str, zero_counts, counts) -> dict:
+    """Phase 25: bench config 9, the 512 -> 1024 -> 1 tanh network on 8192
+    points, 500 Adam steps of a 1-sample ELBO gradient, full f32."""
+    import torch
+
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+
+    din, dh, b, steps = C9_SIZE
+    run, x, y, loss_grad = E.build_bnn_vi(din, dh, b, steps, device=dev)
+    p0 = E.bnn_params0(din, dh, dev)
+    key = random.key(7, device=dev)
+    # The first step's gradient against the hand-written reparameterized
+    # -ELBO's autograd gradient on the same noise.
+    k0 = random.fold_in(key, 0)
+    with E.full_f32_matmul():
+        (dp,) = loss_grad(k0, (p0,))
+        eps1, eps2 = E.bnn_noise(k0, din, dh)
+        pp = {k: v.clone().requires_grad_() for k, v in p0.items()}
+        want = torch.autograd.grad(E.bnn_neg_elbo(pp, eps1, eps2, x, y),
+                                   list(pp.values()))
+    grad_rel = max(float((dp[k] - w).abs().max() / w.abs().max())
+                   for k, w in zip(pp, want))
+    e1, e2 = eps1[0].double(), eps2.double()
+    corr = float(((e1 - e1.mean()) * (e2 - e2.mean())).mean()
+                 / (e1.std(unbiased=False) * e2.std(unbiased=False)))
+    check(grad_rel <= C9_GRAD_REL_BOUND,
+          f"config 9: ADEV gradient {grad_rel} (relative) from the "
+          "reparameterized gradient")
+    check(abs(corr) < C9_CORR_BOUND,
+          f"config 9: corr(eps_w2, eps_W1[0]) = {corr}")
+    ekey = random.key(11, device=dev)
+    before = float(E.bnn_neg_elbo_estimate(ekey, p0, x, y))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    p = run(key)
+    torch.cuda.synchronize()
+    full_wall = time.perf_counter() - t0
+    launches = counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    _no_kernel(launches, "config 9")
+    after = float(E.bnn_neg_elbo_estimate(ekey, p, x, y))
+    mu1 = float(p["mu1"].abs().mean())
+    check(mu1 > 0.0, "config 9: mu1 did not move")
+    check(math.isfinite(after) and after <= C9_NEG_ELBO_FRACTION * before,
+          f"config 9: -ELBO {after} after {steps} steps vs {before} at 0")
+    t_steps = min(50, steps)
+    walls, wall = _median_wall(None, lambda i: run(
+        random.key(30 + i, device=dev), n=t_steps))
+    rate = t_steps / wall
+    fwd = 2.0 * b * din * dh + 2.0 * b * dh
+    share = 3.0 * fwd * rate / F32_OPS_PER_S
+    p_steps = 5
+    p_wall, busy, ops = device_busy(lambda: run(
+        random.key(40, device=dev), n=p_steps))
+    out = {"width": [din, dh, b], "steps": steps, "precision": "f32, TF32 off",
+           "first_grad_rel_err": grad_rel, "noise_corr": corr,
+           "neg_elbo_0": before, "neg_elbo_end": after, "mean_abs_mu1": mu1,
+           "launches": launches, "full_run_s": full_wall,
+           "full_run_grad_steps_per_s": steps / full_wall,
+           "timed_steps": t_steps, "wall_ms": [w * 1e3 for w in walls],
+           "grad_steps_per_s": rate, "f32_peak_share_3fwd": share,
+           "profiled_wall_ms": p_wall, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / p_wall,
+           "device_ops_per_step": ops / p_steps, "peak_gb": peak}
+    print(f"[25 config 9] {card}: BNN VI {din} -> {dh} -> 1 on {b} points, "
+          f"{steps} Adam steps, f32 (TF32 off): first ADEV gradient vs the "
+          f"hand-written one {grad_rel:.3g} rel (bound {C9_GRAD_REL_BOUND}); "
+          f"corr(eps_w2, eps_W1[0]) {corr:.4f} (bound {C9_CORR_BOUND}); "
+          f"16-sample -ELBO {before:.6g} -> {after:.6g} (bound "
+          f"{C9_NEG_ELBO_FRACTION} of it), mean |mu1| {mu1:.5f}; launches "
+          f"{launches}; full run {full_wall:.2f} s ({steps / full_wall:.4g} "
+          f"grad-steps/s); {t_steps}-step runs "
+          f"{[round(w * 1e3, 1) for w in walls]} ms (median "
+          f"{wall * 1e3:.1f} ms), {rate:.5g} grad-steps/s, {share:.4f} of "
+          f"the f32 peak over 3 x fwd flops; profiled {p_steps}-step run "
+          f"{p_wall:.1f} ms, device busy {busy:.3f} ms, idle share "
+          f"{out['idle_share']:.4f}, {out['device_ops_per_step']:.0f} device "
+          f"ops a step; peak device memory {peak:.3f} GB above what earlier "
+          f"phases hold", flush=True)
+    return out
+
+
+def _phi_oracle(xs, grads):
+    """SVGD's direction in float64, pair by pair (through the pairwise
+    differences, not the Gram form)."""
+    import torch
+
+    from genjax_torch.inference.svgd import _median
+
+    x, g = xs.double(), grads.double()
+    n = x.shape[0]
+    d2 = ((x[:, None] - x[None]) ** 2).sum(-1)
+    h = max(float(_median(d2)) / math.log(n + 1.0), 1e-6)
+    k = torch.exp(-d2 / h)
+    return (k @ g + (2.0 / h) * (k.sum(0)[:, None] * x - k @ x)) / n
+
+
+def svgd_phase(dev, card: str, zero_counts, counts) -> dict:
+    """Phase 26: bench config 10, SVGD with 4096 particles x 600 steps on
+    the 1024 x 64 Bayesian linear regression, against its exact
+    posterior mean; _rbf_phi against float64 pairs."""
+    import torch
+
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+    from genjax_torch.inference.svgd import _rbf_phi
+
+    parts, steps, b, d = C10_SIZE
+    run, _, exact = E.build_svgd(parts, steps, b, d, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    w = run(random.key(12, device=dev))
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    launches = counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    _no_kernel(launches, "config 10")
+    err = float((w.double().mean(0).cpu()
+                 - torch.tensor(exact["mean"])).abs().max())
+    check(err <= C10_MEAN_BOUND, f"config 10: ensemble mean {err} from the "
+          "exact posterior mean")
+    xs = random.normal(random.key(40, device=dev), (512, d))
+    gr = random.normal(random.key(41, device=dev), (512, d))
+    oracle = _phi_oracle(xs, gr)
+    phi_rel = float((_rbf_phi(xs, gr).double() - oracle).abs().max()
+                    / oracle.abs().max())
+    check(phi_rel <= C10_PHI_REL_BOUND, f"config 10: _rbf_phi at N = 512 "
+          f"{phi_rel} (relative) from float64 pairs")
+    walls, wall = _median_wall(first_wall, lambda i: run(
+        random.key(13 + i, device=dev)))
+    rate = parts * steps / wall
+    p_steps = 20
+    run_p = E.build_svgd(parts, p_steps, b, d, device=dev)[0]
+    run_p(random.key(20, device=dev))
+    p_wall, busy, ops = device_busy(lambda: run_p(random.key(21, device=dev)))
+    out = {"particles": parts, "steps": steps, "post_mean_err": err,
+           "phi_rel_err_512": phi_rel, "launches": launches,
+           "wall_ms": [x * 1e3 for x in walls],
+           "particle_grad_steps_per_s": rate, "profiled_steps": p_steps,
+           "profiled_wall_ms": p_wall, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / p_wall,
+           "device_ops_per_step": ops / p_steps, "peak_gb": peak}
+    print(f"[26 config 10] {card}: SVGD {parts} particles x {steps} steps on "
+          f"the {b} x {d} regression: max |ensemble mean - exact| {err:.5f} "
+          f"(bound {C10_MEAN_BOUND}); _rbf_phi at N = 512 vs float64 pairs "
+          f"{phi_rel:.3g} rel (bound {C10_PHI_REL_BOUND}); launches "
+          f"{launches}; wall per run {[round(x * 1e3, 1) for x in walls]} ms "
+          f"(median {wall * 1e3:.1f} ms), {rate:.6g} particle-grad-steps/s; "
+          f"profiled {p_steps}-step run {p_wall:.1f} ms, device busy "
+          f"{busy:.3f} ms, idle share {out['idle_share']:.4f}, "
+          f"{out['device_ops_per_step']:.0f} device ops a step; peak device "
+          f"memory {peak:.3f} GB above what earlier phases hold", flush=True)
+    return out
+
+
+def pt_map_phase(dev, card: str, zero_counts, counts) -> dict:
+    """Phase 27: parallel tempering on config 6's conjugate model (4096
+    ladders x 16 rungs, 200 burn-in + 200 steps) within 4 MCSE of the
+    closed form; MAP and Laplace on config 10's regression against its
+    exact posterior and evidence."""
+    import numpy as np
+    import torch
+
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+
+    ladders, rungs, keep, burn = PT_SIZE
+    run, exact = E.build_pt(ladders, rungs, keep, burn, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = run(random.key(1, device=dev))
+    torch.cuda.synchronize()
+    pt_wall = time.perf_counter() - t0
+    launches = counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    _no_kernel(launches, "parallel tempering")
+    s = res.samples.double().cpu()
+    m = float(s.mean())
+    mcse_m = float(s.mean(1).std() / math.sqrt(ladders))
+    s2 = ((s - m) ** 2).mean(1)
+    sd = math.sqrt(float(s2.mean()))
+    mcse_sd = float(s2.std() / math.sqrt(ladders)) / (2 * sd)
+    z_m = abs(m - exact["mean"]) / mcse_m
+    z_sd = abs(sd - exact["sd"]) / mcse_sd
+    check(z_m <= 4.0 and z_sd <= 4.0,
+          f"PT: cold chain mean {m} sd {sd} vs {exact} ({z_m:.2f}, "
+          f"{z_sd:.2f} MCSE)")
+    swap = np.nanmean(res.swap_rate.double().cpu().numpy(), axis=0)
+    accept = res.accept_rate.double().mean(0).cpu().numpy()
+    check(bool(np.all(swap > 0.0)), f"PT: a rung pair never swapped: {swap}")
+    t_steps = 20
+    run_t = E.build_pt(ladders, rungs, t_steps, 0, device=dev)[0]
+    walls, wall = _median_wall(None, lambda i: run_t(
+        random.key(10 + i, device=dev)))
+    rate = ladders * rungs * t_steps / wall
+    p_steps = 4
+    run_p = E.build_pt(ladders, rungs, p_steps, 0, device=dev)[0]
+    run_p(random.key(20, device=dev))
+    p_wall, busy, ops = device_busy(lambda: run_p(random.key(21, device=dev)))
+    pt = {"ladders": ladders, "rungs": rungs, "steps": keep, "burn_in": burn,
+          "mean": m, "sd": sd, "exact": exact, "mcse_mean": mcse_m,
+          "mcse_sd": mcse_sd, "z_mean": z_m, "z_sd": z_sd,
+          "swap_rate": swap.tolist(), "accept_rate": accept.tolist(),
+          "launches": launches, "run_s": pt_wall, "timed_steps": t_steps,
+          "wall_ms": [w * 1e3 for w in walls], "replica_steps_per_s": rate,
+          "profiled_wall_ms": p_wall, "device_busy_ms": busy,
+          "idle_share": 1.0 - busy / p_wall,
+          "device_ops_per_step": ops / p_steps, "peak_gb": peak}
+    print(f"[27 parallel tempering] {card}: config 6's model, {ladders} "
+          f"ladders x {rungs} rungs, {burn} + {keep} steps: cold mean "
+          f"{m:.5f} vs {exact['mean']:.5f} ({z_m:.2f} MCSE), sd {sd:.5f} vs "
+          f"{exact['sd']:.5f} ({z_sd:.2f} MCSE; bound 4); swap acceptance by "
+          f"pair {[round(float(v), 3) for v in swap]}; MH acceptance by rung "
+          f"{[round(float(v), 3) for v in accept]}; launches {launches}; run "
+          f"{pt_wall:.2f} s; {t_steps}-step runs "
+          f"{[round(w * 1e3, 1) for w in walls]} ms (median "
+          f"{wall * 1e3:.1f} ms), {rate:.6g} replica-steps/s; profiled "
+          f"{p_steps}-step run {p_wall:.1f} ms, device busy {busy:.3f} ms, "
+          f"idle share {pt['idle_share']:.4f}, "
+          f"{pt['device_ops_per_step']:.0f} device ops a step; peak device "
+          f"memory {peak:.3f} GB above what earlier phases hold", flush=True)
+
+    map_b, map_d, map_steps = MAP_SIZE
+    run_ml, exact_ml = E.build_map_laplace(map_b, map_d, map_steps,
+                                           device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    mres, lap = run_ml(random.key(0, device=dev))
+    torch.cuda.synchronize()
+    ml_wall = time.perf_counter() - t0
+    ml_launches = counts()
+    ml_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    _no_kernel(ml_launches, "MAP / Laplace")
+    map_err = float((mres.choices["w"].double().cpu()
+                     - torch.tensor(exact_ml["mean"])).abs().max())
+    cov_err = float((lap.cov.double().cpu()
+                     - torch.tensor(exact_ml["cov"])).abs().max())
+    logz_err = abs(float(lap.log_z) - exact_ml["log_z"])
+    check(map_err <= MAP_MEAN_BOUND, f"MAP: {map_err} from the exact mean")
+    check(cov_err <= MAP_COV_BOUND, f"Laplace: covariance {cov_err} from "
+          "the exact one")
+    check(logz_err <= MAP_LOGZ_BOUND, f"Laplace: log Z {float(lap.log_z)} "
+          f"vs exact {exact_ml['log_z']}")
+    ml_walls, ml_med = _median_wall(ml_wall, lambda i: run_ml(
+        random.key(1 + i, device=dev)))
+    p_wall, busy, ops = device_busy(lambda: run_ml(random.key(9, device=dev)))
+    ml = {"steps": map_steps, "map_err": map_err, "cov_err": cov_err,
+          "log_z": float(lap.log_z), "exact_log_z": exact_ml["log_z"],
+          "log_z_err": logz_err, "launches": ml_launches,
+          "wall_ms": [w * 1e3 for w in ml_walls],
+          "adam_steps_per_s": map_steps / ml_med,
+          "profiled_wall_ms": p_wall, "device_busy_ms": busy,
+          "idle_share": 1.0 - busy / p_wall,
+          "device_ops_per_step": ops / map_steps, "peak_gb": ml_peak}
+    print(f"[27 MAP + Laplace] {card}: config 10's regression, "
+          f"map_optimize(include_jacobian=True) {map_steps} Adam steps then "
+          f"laplace_approximation: MAP {map_err:.3g} from the exact mean "
+          f"(bound {MAP_MEAN_BOUND}), covariance {cov_err:.3g} (bound "
+          f"{MAP_COV_BOUND}), log Z {float(lap.log_z):.6f} vs exact "
+          f"{exact_ml['log_z']:.6f} (|err| {logz_err:.3g}, bound "
+          f"{MAP_LOGZ_BOUND}); launches {ml_launches}; wall per run "
+          f"{[round(w * 1e3, 1) for w in ml_walls]} ms (median "
+          f"{ml_med * 1e3:.1f} ms), {map_steps / ml_med:.6g} Adam steps/s; "
+          f"profiled run {p_wall:.1f} ms, device busy {busy:.3f} ms, idle "
+          f"share {ml['idle_share']:.4f}, {ml['device_ops_per_step']:.0f} "
+          f"device ops a step; peak device memory {ml_peak:.4f} GB",
+          flush=True)
+    return {"pt": pt, "map_laplace": ml}
+
+
 def main() -> int:
     import torch
 
@@ -2279,6 +2705,12 @@ def main() -> int:
     trace_level = trace_phase(dev, card, zero_counts, counts)
     gensp = gensp_phase(dev, card)
 
+    # -- 24-27. ADEV and VI, SVGD, parallel tempering, MAP / Laplace -------
+    config5 = adev_vi_phase(dev, card, zero_counts, counts)
+    config9 = bnn_vi_phase(dev, card, zero_counts, counts)
+    config10 = svgd_phase(dev, card, zero_counts, counts)
+    pt_map = pt_map_phase(dev, card, zero_counts, counts)
+
     lm_main = lm_rows[s_hmm]
     record = {"kernels": [
         {"name": "cdf_counts", "route": "cuda",
@@ -2359,7 +2791,10 @@ def main() -> int:
                      "peak_gb": peak6, "ops_by_module": mods6},
         "edits": c6_edit, "nuts": nuts, "slds_rbpf": slds,
         "switch_mixture": mixture, "config_7": config7,
-        "trace_level": trace_level, "gensp": gensp}
+        "trace_level": trace_level, "gensp": gensp, "config_5": config5,
+        "config_9": config9, "config_10": config10,
+        "parallel_tempering": pt_map["pt"],
+        "map_laplace": pt_map["map_laplace"]}
     print(card, flush=True)
     print(json.dumps(finite_or_none(record)), flush=True)
     print(json.dumps({"ok": True, "device": {

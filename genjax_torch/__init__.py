@@ -7,12 +7,14 @@ exact testbed, the HMM bootstrap filter), the edits slice (the five
 GFI methods with ``edit``, the Vmap / repeat and Scan combinators, MH and
 the tempered SMC samplers), gradient MCMC (HMC, MALA, NUTS with
 cross-chain adaptation, elliptical slice, support transforms,
-diagnostics; bench configs 2 and 8 in ``entry``), and the switch-and-models
+diagnostics; bench configs 2 and 8 in ``entry``), the switch-and-models
 slice (Switch, mix, or_else; exact enumeration, posterior predictive; the
 model families of ``models`` with their oracles, SLDS-RBPF among them),
-and the particle-samplers slice (``ChangeTarget``, the GenSP / VI methods
+the particle-samplers slice (``ChangeTarget``, the GenSP / VI methods
 and ``marginal``, the row resamplers, PMMH, SMC², particle Gibbs, the
-trace-level particle filter and data-annealed SMC; bench config 7),
+trace-level particle filter and data-annealed SMC; bench config 7), and
+ADEV with variational inference, SVGD, parallel tempering and MAP /
+Laplace (bench configs 5, 9 and 10),
 with every kernel of the JAX package written by hand for Hopper
 (``ops/``). The package imports ``torch`` and never ``jax``.
 """
@@ -85,7 +87,7 @@ from genjax_torch.lang.combinators import (
     vmap,
 )
 from genjax_torch.core import random  # noqa: E402
-from genjax_torch import inference, models, ops  # noqa: E402,F401
+from genjax_torch import adev, inference, models, ops  # noqa: E402,F401
 from genjax_torch.inference import (  # noqa: E402
     HMC,
     MALA,
@@ -102,7 +104,9 @@ from genjax_torch.inference import (  # noqa: E402
 #: (``entry`` imports the package, so they load on first use).
 _ENTRY_POINTS = ("build_nuts_regression", "build_nuts_logreg",
                  "build_slds_rbpf", "build_switch_mixture", "build_smc2",
-                 "build_trace_pf", "build_data_smc")
+                 "build_trace_pf", "build_data_smc", "build_adev_vi",
+                 "build_bnn_vi", "build_svgd", "build_pt",
+                 "build_map_laplace")
 
 
 def __getattr__(name):
@@ -170,6 +174,7 @@ __all__ = [
     "empty_trace",
     "ess_autocorr",
     "gen",
+    "adev",
     "inference",
     "iterate",
     "iterate_final",

@@ -44,6 +44,8 @@ __all__ = [
     "gamma",
     "loggamma",
     "beta",
+    "dirichlet",
+    "geometric",
     "event_shape",
 ]
 
@@ -351,3 +353,21 @@ def beta(k: torch.Tensor, a, b, shape=()) -> torch.Tensor:
     ga = torch.exp(la - m)
     gb = torch.exp(lb - m)
     return ga / (ga + gb)
+
+
+def dirichlet(k: torch.Tensor, alpha, shape=()) -> torch.Tensor:
+    """A Dirichlet(``alpha``) draw per key, as ``jax.random.dirichlet``
+    forms it: the softmax of ``loggamma`` draws over the last axis.
+    ``shape`` is the per-key batch in front of ``alpha``'s last axis."""
+    alpha = _f32(alpha, k.device)
+    return torch.softmax(
+        loggamma(k, alpha, tuple(shape) + tuple(alpha.shape[-1:])), dim=-1)
+
+
+def geometric(k: torch.Tensor, p, shape=()) -> torch.Tensor:
+    """``jax.random.geometric``: the number of trials to the first success
+    (support 1, 2, ...), ``floor(log u / log1p(-p)) + 1``, as int32."""
+    p = _f32(p, k.device)
+    u = uniform(k, shape)
+    g = torch.floor(torch.log(u) / torch.log1p(-p).expand(u.shape)) + 1.0
+    return g.to(torch.int32)

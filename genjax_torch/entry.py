@@ -44,7 +44,14 @@
 - :func:`build_trace_pf`: the trace-level particle filter on the same
   LGSSM as a ``Scan`` model, against the Kalman log-likelihood;
 - :func:`build_data_smc`: data-annealed SMC on the beta-bernoulli coins
-  model, one flip a step, against its closed-form evidence.
+  model, one flip a step, against its closed-form evidence;
+- :func:`build_adev_vi`, :func:`build_bnn_vi`, :func:`build_svgd`: bench
+  configs 5, 9 and 10 (ADEV VI with an enumerated guide, ADEV VI of a
+  tanh network, SVGD on a Bayesian linear regression), against the
+  closed-form trajectory, a hand-written gradient and
+  :func:`blr_exact`; :func:`build_pt` and :func:`build_map_laplace`:
+  parallel tempering on config 6's model and MAP / Laplace on config
+  10's regression.
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (or another device); without a card it raises rather
@@ -56,6 +63,7 @@ form reads too.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -63,7 +71,20 @@ import torch
 
 import genjax_torch as g
 from genjax_torch.core import random
-from genjax_torch.inference import ImportanceK, Target, mh, run_nuts
+from genjax_torch.inference import (
+    ImportanceK,
+    Target,
+    marginal,
+    mh,
+    run_nuts,
+    vi,
+)
+from genjax_torch.inference.map_laplace import (
+    laplace_approximation,
+    map_optimize,
+)
+from genjax_torch.inference.pt import parallel_tempering
+from genjax_torch.inference.svgd import run_svgd
 from genjax_torch.inference.smc import batched_importance
 from genjax_torch.inference.exact_testbed import sample_problem
 from genjax_torch.inference.pf import fused_particle_filter, particle_filter
@@ -132,6 +153,24 @@ __all__ = [
     "coins_observations",
     "coins_exact_log_z",
     "build_data_smc",
+    "adev_vi_problem",
+    "adev_vi_exact",
+    "build_adev_vi",
+    "bnn_data",
+    "bnn_vi_problem",
+    "bnn_params0",
+    "bnn_noise",
+    "bnn_neg_elbo",
+    "bnn_neg_elbo_estimate",
+    "full_f32_matmul",
+    "build_bnn_vi",
+    "blr_model",
+    "blr_data",
+    "blr_exact",
+    "build_svgd",
+    "tempered_exact_posterior",
+    "build_pt",
+    "build_map_laplace",
 ]
 
 
@@ -824,3 +863,326 @@ def build_data_smc(n_particles: int = 2 ** 19, n_flips: int = 32,
         make_request=lambda: g.Regenerate(g.Selection.at["p"]),
         n_moves=n_moves)
     return run, coins_exact_log_z(obs)
+
+
+# -- configs 5, 9 and 10; parallel tempering; MAP / Laplace -------------------
+
+
+def adev_vi_problem():
+    """Config 5's model, guide and ELBO gradient: ``comp ~ flip(0.5)``,
+    ``mu ~ normal(±v, 1)``, ``y ~ normal(mu, 0.5)`` observed at 1; the
+    guide enumerates ``comp`` (``flip_enum``) and reparameterizes ``mu``
+    (``normal_reparam(±v, 0.5)``). Returns ``(model, guide, loss_grad)``,
+    ``loss_grad(keys E + (2,), (v,)) -> (dv,)`` with ``v`` of shape
+    ``E``. With common random numbers across the two branches, the
+    gradient is exactly ``4v`` on every key."""
+
+    @g.gen
+    def model(v):
+        comp = g.flip(0.5) @ "comp"
+        mu = g.normal(torch.where(comp, v, -v), 1.0) @ "mu"
+        _ = g.normal(mu, 0.5) @ "y"
+
+    @marginal()
+    @g.gen
+    def guide(target):
+        (v,) = target.args
+        b = vi.flip_enum(0.5) @ "comp"
+        _ = vi.normal_reparam(torch.where(b, v, -v), 0.5) @ "mu"
+
+    loss_grad = vi.ELBO(guide, lambda v: Target(model, (v,),
+                                                g.C["y"].set(1.0)))
+    return model, guide, loss_grad
+
+
+def adev_vi_exact(v0, n_steps: int, lr: float = 1e-3):
+    """Config 5's closed-form trajectory: every gradient is ``4v``, so
+    ``v_n = v0 · (1 − 4·lr)^n`` (in float64)."""
+    return np.asarray(v0, np.float64) * (1.0 - 4.0 * lr) ** n_steps
+
+
+def build_adev_vi(n_fits: int = 65536, n_steps: int = 100,
+                  elbo_samples: int = 8, lr: float = 1e-3, device=None):
+    """Bench config 5: ``n_fits`` independent fits, ``v0 =
+    linspace(0.2, 0.8)``, each of ``n_steps`` gradient steps on the mean
+    of ``elbo_samples`` ELBO gradients. Fit ``f`` takes key
+    ``split(key, n_fits)[f]``, step ``i`` the samples' keys
+    ``split(fold_in(fit_key, i), elbo_samples)``, as
+    ``run_all.py::config5_vi`` does; all fits and samples are one key
+    batch ``(n_fits, elbo_samples)`` of executions. Returns ``(run,
+    v0)``: ``run(key) -> (v, first_grad)``, the final ``v`` and each
+    fit's first mean gradient."""
+    dev = _device(device)
+    _, _, loss_grad = adev_vi_problem()
+    v0 = torch.linspace(0.2, 0.8, n_fits, device=dev)
+
+    def run(key):
+        fit_keys = random.split(key.to(dev), n_fits)
+        v, first = v0, None
+        for i in range(n_steps):
+            keys = random.split(random.fold_in(fit_keys, i), elbo_samples)
+            (dv,) = loss_grad(keys, (v[:, None].expand(n_fits,
+                                                        elbo_samples),))
+            grad = dv.mean(-1)
+            first = grad if first is None else first
+            v = v - lr * grad
+        return v, first
+
+    return run, v0
+
+
+BNN_DATA_KEYS = (3, 4, 5, 6)
+
+
+def bnn_data(din: int = 512, dh: int = 1024, b: int = 8192, device=None):
+    """Config 9's data, drawn from the port's keys 3-6 as
+    ``run_all.py::config9_bnn_vi`` draws it from JAX's: ``X =
+    normal(key 3, (b, din)) / sqrt(din)``, a teacher ``W1 = 0.8 ·
+    normal(key 4)``, ``w2 = normal(key 5) / sqrt(dh)``, ``y = tanh(X W1)
+    w2 + 0.1 · normal(key 6)``. Returns ``(X, y)``."""
+    dev = _device(device)
+    k3, k4, k5, k6 = (random.key(s, device=dev) for s in BNN_DATA_KEYS)
+    x = random.normal(k3, (b, din)) / math.sqrt(din)
+    w1t = 0.8 * random.normal(k4, (din, dh))
+    w2t = random.normal(k5, (dh,)) / math.sqrt(dh)
+    y = torch.tanh(x @ w1t) @ w2t + 0.1 * random.normal(k6, (b,))
+    return x, y
+
+
+def bnn_vi_problem(x: torch.Tensor, y: torch.Tensor):
+    """Config 9's model and mean-field guide over a tanh network
+    ``din -> dh -> 1``: ``W1``, ``w2`` standard normal,
+    ``y ~ mv_normal_diag(tanh(X W1) w2, 0.5)``; the guide draws each
+    weight by ``normal_reparam(mu, softplus(rho))``. Returns ``(model,
+    guide, loss_grad)``, ``loss_grad(key, (params,))`` the ELBO gradient
+    of ``params = {"mu1", "rho1", "mu2", "rho2"}``."""
+
+    @g.gen
+    def bnn(params, x):
+        w1 = g.normal(torch.zeros_like(params["mu1"]), 1.0) @ "W1"
+        w2 = g.normal(torch.zeros_like(params["mu2"]), 1.0) @ "w2"
+        f = (torch.tanh(x @ w1) @ w2[..., None])[..., 0]
+        _ = g.mv_normal_diag(f, 0.5 * torch.ones_like(f)) @ "y"
+
+    @marginal()
+    @g.gen
+    def guide(target):
+        params, _x = target.args
+        _ = vi.normal_reparam(
+            params["mu1"], torch.nn.functional.softplus(params["rho1"])
+        ) @ "W1"
+        _ = vi.normal_reparam(
+            params["mu2"], torch.nn.functional.softplus(params["rho2"])
+        ) @ "w2"
+
+    loss_grad = vi.ELBO(guide, lambda p: Target(bnn, (p, x),
+                                                g.C["y"].set(y)))
+    return bnn, guide, loss_grad
+
+
+def bnn_params0(din: int, dh: int, device=None) -> dict:
+    """Config 9's starting point: means 0, ``rho`` −2."""
+    dev = _device(device)
+    return {"mu1": torch.zeros(din, dh, device=dev),
+            "rho1": torch.full((din, dh), -2.0, device=dev),
+            "mu2": torch.zeros(dh, device=dev),
+            "rho2": torch.full((dh,), -2.0, device=dev)}
+
+
+def bnn_noise(key, din: int, dh: int):
+    """The standard-normal noise an ELBO gradient on ``key`` gives the
+    guide's two sites under the port's key discipline: ``W1`` draws from
+    ``split(key)[1]``, and the continuation's key ``split(key)[0]`` gives
+    ``w2`` its ``split(·)[1]``."""
+    k_w2, k_w1 = random.split(key).unbind(-2)
+    eps1 = random.normal(k_w1, (din, dh))
+    eps2 = random.normal(random.split(k_w2)[..., 1, :], (dh,))
+    return eps1, eps2
+
+
+def bnn_neg_elbo(params: dict, eps1, eps2, x, y) -> torch.Tensor:
+    """The reparameterized −ELBO of config 9 written out by hand (a plain
+    reference, independent of the ADEV handler): ``W = mu + softplus(rho)
+    · eps``, then ``−[log p(W1) + log p(w2) + log p(y | W) − log q(W1)
+    − log q(w2)]``."""
+    def normal_lp(v, loc, scale):
+        return (-0.5 * ((v - loc) / scale) ** 2 - torch.log(scale)
+                - 0.5 * math.log(2 * math.pi))
+
+    s1 = torch.nn.functional.softplus(params["rho1"])
+    s2 = torch.nn.functional.softplus(params["rho2"])
+    w1 = params["mu1"] + s1 * eps1
+    w2 = params["mu2"] + s2 * eps2
+    f = torch.tanh(x @ w1) @ w2
+    log_p = (normal_lp(w1, 0.0, torch.ones(())).sum()
+             + normal_lp(w2, 0.0, torch.ones(())).sum()
+             + normal_lp(y, f, torch.full((), 0.5)).sum())
+    log_q = (normal_lp(w1, params["mu1"], s1).sum()
+             + normal_lp(w2, params["mu2"], s2).sum())
+    return -(log_p - log_q)
+
+
+def bnn_neg_elbo_estimate(key, params: dict, x, y, n: int = 16):
+    """The mean of :func:`bnn_neg_elbo` over ``n`` noise draws, draw
+    ``j`` from :func:`bnn_noise` on ``fold_in(key, j)``."""
+    din, dh = params["mu1"].shape
+    total = torch.zeros((), device=x.device)
+    with torch.no_grad():
+        for j in range(n):
+            eps1, eps2 = bnn_noise(random.fold_in(key.to(x.device), j), din,
+                                   dh)
+            total = total + bnn_neg_elbo(params, eps1, eps2, x, y)
+    return total / n
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Matrix products in full f32 (no TF32) inside the block: the
+    precision of config 9's products, which the JAX package runs as
+    plain f32 XLA products."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def build_bnn_vi(din: int = 512, dh: int = 1024, b: int = 8192,
+                 n_steps: int = 500, lr: float = 1e-2, device=None):
+    """Bench config 9: ADEV VI of a mean-field Gaussian over the weights
+    of a ``din -> dh -> 1`` tanh network on ``b`` points (:func:`bnn_data`),
+    ``n_steps`` steps of a 1-sample ELBO gradient on key
+    ``fold_in(key, i)`` and the Adam update of ``run_all.py`` (β 0.9 /
+    0.999, ``lr``, eps 1e-8, no bias correction). Products in full f32
+    (:func:`full_f32_matmul`). Returns ``(run, x, y, loss_grad)``:
+    ``run(key, params=None) -> params``."""
+    dev = _device(device)
+    x, y = bnn_data(din, dh, b, dev)
+    _, _, loss_grad = bnn_vi_problem(x, y)
+
+    def run(key, params=None, n=n_steps):
+        p = params if params is not None else bnn_params0(din, dh, dev)
+        m = {k: torch.zeros_like(v) for k, v in p.items()}
+        v2 = {k: torch.zeros_like(v) for k, v in p.items()}
+        with full_f32_matmul():
+            for i in range(n):
+                (dp,) = loss_grad(random.fold_in(key.to(dev), i), (p,))
+                for k in p:
+                    m[k] = 0.9 * m[k] + 0.1 * dp[k]
+                    v2[k] = 0.999 * v2[k] + 0.001 * dp[k] * dp[k]
+                    p[k] = p[k] - lr * m[k] / (torch.sqrt(v2[k]) + 1e-8)
+        return p
+
+    return run, x, y, loss_grad
+
+
+def blr_model(b: int, d: int):
+    """Config 10's Bayesian linear regression: ``w ~ mv_normal_diag(0,
+    1)`` over ``d`` coefficients, ``y ~ mv_normal_diag(X w, 0.25)`` over
+    ``b`` points."""
+
+    @g.gen
+    def blr(x):
+        w = g.mv_normal_diag(torch.zeros(d, device=x.device),
+                             torch.ones(d, device=x.device)) @ "w"
+        _ = g.mv_normal_diag(_shared_matvec(x, w),
+                             torch.full((b,), 0.25, device=x.device)) @ "y"
+
+    return blr
+
+
+def blr_data(b: int = 1024, d: int = 64, device=None):
+    """Config 10's data from the port's keys 10 and 11, as
+    ``run_all.py::config10_svgd`` draws it from JAX's: ``X = normal(key
+    10, (b, d)) / sqrt(d)``, ``y = X linspace(-1, 1, d) + 0.25 ·
+    normal(key 11)``. Returns ``(X, y)``."""
+    dev = _device(device)
+    x = random.normal(random.key(10, device=dev), (b, d)) / math.sqrt(d)
+    w_true = torch.linspace(-1.0, 1.0, d, device=dev)
+    y = x @ w_true + 0.25 * random.normal(random.key(11, device=dev), (b,))
+    return x, y
+
+
+def blr_exact(x, y, noise_sd: float = 0.25) -> dict:
+    """The conjugate posterior of :func:`blr_model` and its evidence, in
+    float64: ``{"mean", "cov", "log_z"}``."""
+    xd = torch.as_tensor(x).double().cpu()
+    yd = torch.as_tensor(y).double().cpu()
+    s2 = noise_sd ** 2
+    prec = torch.eye(xd.shape[1], dtype=torch.float64) + xd.T @ xd / s2
+    cov = torch.linalg.inv(prec)
+    mean = torch.linalg.solve(prec, xd.T @ yd / s2)
+    marg = s2 * torch.eye(xd.shape[0], dtype=torch.float64) + xd @ xd.T
+    chol = torch.linalg.cholesky(marg)
+    z = torch.linalg.solve_triangular(chol, yd[:, None], upper=False)[:, 0]
+    log_z = (-0.5 * (z * z).sum() - torch.log(torch.diagonal(chol)).sum()
+             - 0.5 * xd.shape[0] * math.log(2 * math.pi))
+    return {"mean": mean.numpy(), "cov": cov.numpy(), "log_z": float(log_z)}
+
+
+def build_svgd(n_particles: int = 4096, n_steps: int = 600, b: int = 1024,
+               d: int = 64, step_size: float = 0.05, h_rows: int = 256,
+               device=None):
+    """Bench config 10: ``run_svgd`` on :func:`blr_model` with
+    :func:`blr_data`. Returns ``(run, target, exact)``: ``run(key) ->``
+    the ensemble's ``w`` (``(n_particles, d)``), and :func:`blr_exact`."""
+    x, y = blr_data(b, d, device)
+    target = Target(blr_model(b, d), (x,), g.C["y"].set(y))
+
+    def run(key):
+        ens = run_svgd(target, key.to(x.device), n_particles=n_particles,
+                       n_steps=n_steps, step_size=step_size, h_rows=h_rows)
+        return ens["w"]
+
+    return run, target, blr_exact(x, y)
+
+
+def tempered_exact_posterior(ys, sigma: float = TEMPERED_SIGMA) -> dict:
+    """Config 6's conjugate posterior of ``mu``: ``{"mean", "sd"}``."""
+    y = np.asarray(torch.as_tensor(ys).cpu(), np.float64)
+    post_var = 1.0 / (1.0 / TEMPERED_PRIOR_SD ** 2 + y.size / sigma ** 2)
+    return {"mean": float(post_var * y.sum() / sigma ** 2),
+            "sd": float(math.sqrt(post_var))}
+
+
+def build_pt(n_ladders: int = 4096, n_rungs: int = 16, n_steps: int = 200,
+             burn_in: int = 200, n_obs: int = 64, device=None):
+    """Parallel tempering on config 6's conjugate model
+    (:func:`tempered_model`, ``sigma`` 0.8, :func:`tempered_observations`):
+    ``n_ladders`` independent linear ladders of ``n_rungs`` rungs, the
+    default ``Regenerate`` of ``mu``, ``burn_in + n_steps`` steps with the
+    cold chain's ``mu`` kept after burn-in. Returns ``(run, exact)``:
+    ``run(key) -> ParallelTemperingResult`` (samples ``(n_ladders,
+    n_steps)``) and :func:`tempered_exact_posterior`."""
+    dev = _device(device)
+    ys = tempered_observations(n_obs, dev)
+    target = Target(tempered_model(n_obs), (TEMPERED_SIGMA,),
+                    g.C["ys"].set(ys))
+    sampler = parallel_tempering(target, n_rungs)
+
+    def run(key):
+        keys = random.split(key.to(dev), n_ladders)
+        return sampler(keys, burn_in + n_steps, burn_in=burn_in,
+                       collect=lambda tr: tr.get_choices()["mu"])
+
+    return run, tempered_exact_posterior(ys)
+
+
+def build_map_laplace(b: int = 1024, d: int = 64, n_steps: int = 1000,
+                      device=None):
+    """``map_optimize(include_jacobian=True)`` (Adam, lr 1e-2) then
+    ``laplace_approximation`` on config 10's regression, whose Gaussian
+    posterior makes the Laplace approximation exact. Returns ``(run,
+    exact)``: ``run(key) -> (MAPResult, LaplaceResult)`` and
+    :func:`blr_exact`."""
+    x, y = blr_data(b, d, device)
+    target = Target(blr_model(b, d), (x,), g.C["y"].set(y))
+
+    def run(key):
+        res = map_optimize(key.to(x.device), target, n_steps=n_steps,
+                           include_jacobian=True)
+        return res, laplace_approximation(target, res.choices,
+                                          transforms=res.transforms)
+
+    return run, blr_exact(x, y)

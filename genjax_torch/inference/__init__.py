@@ -4,9 +4,23 @@ filters, the row resamplers, MH, the tempered SMC samplers, the particle
 samplers (PMMH, SMC², particle Gibbs, the trace-level particle filter,
 data-annealed SMC), gradient MCMC (HMC, MALA, NUTS with cross-chain
 adaptation, elliptical slice, support transforms and diagnostics), exact
-enumeration and posterior predictive sampling."""
+enumeration and posterior predictive sampling, variational inference
+through ADEV (``vi``), SVGD, parallel tempering, and MAP with the Laplace
+approximation."""
 
+from genjax_torch.inference import vi
 from genjax_torch.inference.adaptation import run_nuts, warmup_chains
+from genjax_torch.inference.map_laplace import (
+    LaplaceResult,
+    MAPResult,
+    laplace_approximation,
+    map_optimize,
+)
+from genjax_torch.inference.pt import (
+    ParallelTemperingResult,
+    parallel_tempering,
+)
+from genjax_torch.inference.svgd import run_svgd, svgd_step
 from genjax_torch.inference.data_smc import DataSMCResult, data_annealed_smc
 from genjax_torch.inference.diagnostics import (
     ess_autocorr,
@@ -95,6 +109,15 @@ from genjax_torch.inference.sp import (
 )
 
 __all__ = [
+    "LaplaceResult",
+    "MAPResult",
+    "ParallelTemperingResult",
+    "laplace_approximation",
+    "map_optimize",
+    "parallel_tempering",
+    "run_svgd",
+    "svgd_step",
+    "vi",
     "Algorithm",
     "ChangeTarget",
     "DataSMCResult",

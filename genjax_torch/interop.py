@@ -12,13 +12,14 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from genjax_torch.core.pytree import tree_map
 from genjax_torch.gfi.choice_map import ChoiceMap
 from genjax_torch.lang.distributions.discrete_hmm import (
     DiscreteHMMConfiguration,
 )
 
 __all__ = ["key_from_numpy", "choice_map_from_numpy", "ensemble_from_numpy",
-           "hmm_config_from_numpy"]
+           "hmm_config_from_numpy", "params_from_numpy"]
 
 
 def key_from_numpy(data, device=None) -> torch.Tensor:
@@ -57,3 +58,12 @@ def hmm_config_from_numpy(prior, trans, obs, device=None
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
     return DiscreteHMMConfiguration(f32(prior), f32(trans), f32(obs))
+
+
+def params_from_numpy(tree, device=None):
+    """A pytree of numpy arrays (variational parameters, an ensemble, a
+    temperature ladder) as the port's tensors on ``device``, each in its
+    own dtype; Python scalars stay as they are."""
+    return tree_map(
+        lambda v: torch.tensor(np.asarray(v), device=device)
+        if isinstance(v, (np.ndarray, np.generic)) else v, tree)

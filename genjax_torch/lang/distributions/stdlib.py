@@ -1,5 +1,6 @@
 """The distributions of the ported paths: normal, beta, gamma, flip /
-bernoulli, uniform, categorical and mv_normal_diag (counterpart of
+bernoulli, uniform, categorical, geometric, dirichlet, mv_normal_diag
+and mv_normal (counterpart of
 ``genjax_tpu/lang/distributions/stdlib.py``; the rest of its ~45
 distributions are not ported yet). Parameterizations follow the JAX
 package: ``flip`` takes probs, ``bernoulli`` and ``categorical`` logits.
@@ -17,8 +18,8 @@ import torch
 from genjax_torch.core import random
 from genjax_torch.lang.distributions.distribution import exact_density
 
-__all__ = ["bernoulli", "beta", "categorical", "flip", "gamma",
-           "mv_normal_diag", "normal", "uniform"]
+__all__ = ["bernoulli", "beta", "categorical", "dirichlet", "flip", "gamma",
+           "geometric", "mv_normal", "mv_normal_diag", "normal", "uniform"]
 
 
 def _device(*xs):
@@ -187,3 +188,69 @@ def _mvn_diag_logpdf(v, loc, scale_diag):
 #: MultivariateNormalDiag(loc, scale_diag).
 mv_normal_diag = exact_density(_mvn_diag_sample, _mvn_diag_logpdf,
                                "mv_normal_diag", event_rank=1)
+
+
+def _geometric_sample(key, p):
+    p = _f(p, key.device)
+    u = random.uniform(key, random.event_shape(key, p))
+    return torch.floor(torch.log1p(-u) / torch.log1p(-p)).to(torch.int32)
+
+
+def _geometric_logpmf(v, p):
+    dev = _device(v, p)
+    v, p = _f(v, dev), _f(p, dev)
+    return _xlog1py(v, -p) + torch.log(p)
+
+
+#: Geometric(probs): the number of failures before the first success
+#: (support 0, 1, ...), the JAX package's TFP convention.
+geometric = exact_density(_geometric_sample, _geometric_logpmf, "geometric")
+
+
+def _dirichlet_sample(key, conc):
+    conc = _f(conc, key.device)
+    return random.dirichlet(key, conc,
+                            random.event_shape(key, conc[..., 0]))
+
+
+def _dirichlet_logpdf(v, conc):
+    dev = _device(v, conc)
+    v, a = _f(v, dev), _f(conc, dev)
+    norm = torch.lgamma(a).sum(-1) - torch.lgamma(a.sum(-1))
+    lp = _xlogy(a - 1.0, v).sum(-1) - norm
+    simplex = (v > 0.0).all(-1) & ((v.sum(-1) - 1.0).abs() < 1e-6)
+    return torch.where(simplex, lp, torch.full_like(lp, -math.inf))
+
+
+#: Dirichlet(concentration), drawn as normalized gammas (the softmax of
+#: ``loggamma`` draws, as ``jax.random.dirichlet`` draws it).
+dirichlet = exact_density(_dirichlet_sample, _dirichlet_logpdf, "dirichlet",
+                          support="simplex", event_rank=1)
+
+
+def _mvn_sample(key, loc, cov):
+    loc, cov = _f(loc, key.device), _f(cov, key.device)
+    factor = torch.linalg.cholesky(cov)
+    eps = random.normal(key, random.event_shape(key, loc[..., 0],
+                                                cov[..., 0, 0])
+                        + tuple(loc.shape[-1:]))
+    return loc + (factor @ eps[..., None])[..., 0]
+
+
+def _mvn_logpdf(v, loc, cov):
+    dev = _device(v, loc, cov)
+    v, loc, cov = _f(v, dev), _f(loc, dev), _f(cov, dev)
+    factor = torch.linalg.cholesky(cov)
+    diff = (v - loc)[..., None]
+    z = torch.linalg.solve_triangular(
+        factor, diff.expand(torch.broadcast_shapes(
+            diff.shape, factor.shape[:-1] + (1,))), upper=False)[..., 0]
+    n = loc.shape[-1]
+    log_det = torch.log(torch.diagonal(factor, dim1=-2, dim2=-1)).sum(-1)
+    return -0.5 * (z * z).sum(-1) - log_det - 0.5 * n * math.log(2 * math.pi)
+
+
+#: MultivariateNormalFullCovariance(loc, covariance_matrix), through the
+#: Cholesky factor of the covariance.
+mv_normal = exact_density(_mvn_sample, _mvn_logpdf, "mv_normal",
+                          event_rank=1)

@@ -71,3 +71,71 @@ def test_profiled_ops_retakes_a_profile_that_lost_events(monkeypatch):
     seen = iter([3.0, 3.0, 3.0])
     res, tries = chip_smoke.profiled_ops(lambda: None, 10, 2)
     assert res[3] == 3.0 and tries == [3.0, 3.0, 3.0]
+
+
+def test_config5_closed_form_trajectory():
+    """Phase 24's reference: every ELBO gradient of config 5 is 4 v, so
+    the fit after n steps is v0 (1 − 4 lr)^n."""
+    import numpy as np
+
+    from genjax_torch import entry as E
+
+    v0 = np.linspace(0.2, 0.8, 7)
+    v = v0.copy()
+    for _ in range(100):
+        v = v - 1e-3 * 4.0 * v
+    np.testing.assert_allclose(E.adev_vi_exact(v0, 100), v, rtol=1e-12)
+
+
+def test_blr_exact_posterior_and_evidence():
+    """Phases 26-27's reference: the conjugate posterior and evidence of
+    config 10's regression, against the joint Gaussian of (w, y)."""
+    import numpy as np
+    from scipy import stats
+
+    from genjax_torch import entry as E
+
+    x, y = E.blr_data(48, 5, "cpu")
+    got = E.blr_exact(x, y)
+    xd, yd = x.double().numpy(), y.double().numpy()
+    sxy = xd                                    # cov(y, w) = X
+    syy = 0.0625 * np.eye(48) + xd @ xd.T
+    mean = sxy.T @ np.linalg.solve(syy, yd)
+    cov = np.eye(5) - sxy.T @ np.linalg.solve(syy, sxy)
+    np.testing.assert_allclose(got["mean"], mean, rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(got["cov"], cov, rtol=1e-9, atol=1e-12)
+    want = stats.multivariate_normal(np.zeros(48), syy).logpdf(yd)
+    assert abs(got["log_z"] - want) < 1e-8
+
+
+def test_tempered_exact_posterior_against_a_grid():
+    """Phase 27's PT reference: config 6's conjugate posterior of mu,
+    against a float64 grid of the prior times the likelihood."""
+    import numpy as np
+
+    from genjax_torch import entry as E
+
+    ys = E.tempered_observations(64, "cpu").double().numpy()
+    grid = np.linspace(0.5, 2.5, 200001)
+    logp = (-0.5 * grid ** 2 / 9.0
+            - 0.5 * ((ys[None, :] - grid[:, None]) ** 2).sum(1) / 0.64)
+    w = np.exp(logp - logp.max())
+    w /= w.sum()
+    mean = (w * grid).sum()
+    sd = np.sqrt((w * (grid - mean) ** 2).sum())
+    got = E.tempered_exact_posterior(ys)
+    assert abs(got["mean"] - mean) < 1e-8 and abs(got["sd"] - sd) < 1e-8
+
+
+def test_phi_oracle_matches_the_port():
+    """Phase 26's float64 pairwise oracle of SVGD's direction agrees with
+    the port's Gram-form ``_rbf_phi`` on the CPU."""
+    from genjax_torch.core import random
+    from genjax_torch.inference.svgd import _rbf_phi
+
+    xs = random.normal(random.key(40), (64, 6))
+    gr = random.normal(random.key(41), (64, 6))
+    oracle = chip_smoke._phi_oracle(xs, gr)
+    rel = float((_rbf_phi(xs, gr).double() - oracle).abs().max()
+                / oracle.abs().max())
+    assert rel <= chip_smoke.C10_PHI_REL_BOUND
