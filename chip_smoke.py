@@ -124,6 +124,22 @@ Phases (each prints one line; any failure exits non-zero):
      rungs, 200 + 200 steps) within 4 MCSE of the closed form, and MAP
      with the Laplace approximation (build_map_laplace) on config 10's
      regression against its exact mean, covariance and evidence.
+ 28. the distributed layer (genjax_torch.parallel) over NCCL in a world of
+     one, started by init_distributed through a file:// store and
+     destroyed at the end: config 4 sharded at 2^20 x 32 (collectives on,
+     against build_pf, the linear model against Kalman, zero ring trips,
+     no collective of n elements; the gathered baseline with one CDF
+     launch a resample); the rank-local parts at D = 2, 4, 8 shapes
+     bitwise the one-rank rows (blocked CDF stats and offspring
+     intervals at 2^20, the chain-group partials of 2048 chains, the HMM
+     block summaries at S = 64, SVGD direction rows); ring_resample_step
+     at 2^20 against the CDF kernel and float64 counts; sharded SIR at
+     2^20 against ImportanceK; the time-sharded HMM at 64 x 65536 against
+     forward_filter (and bitwise it at T = 1024, block = T); NUTS with
+     mesh= bitwise mesh=None at 2048 chains; sharded SVGD at config 10.
+     Each part prints its wall (median of 3), rate, collectives a step
+     with their bytes, host syncs, device-busy time, idle share, device
+     ops and peak memory.
 Phases 24-27 each print the wall of a run (the median of 3), its rate,
 a profiled short run's device-busy time, idle share and device ops a
 step, and the peak device memory; none launches one of the four kernels,
@@ -453,6 +469,58 @@ def _close(a, b, scale=None):
     if scale is not None:
         tol = tol + 1e-6 * scale.double().cpu()
     return float(((a - b).abs() / tol).max())
+
+
+def float64_counts(key, lw, n: int):
+    """The cumulative systematic offspring counts from a float64 prefix
+    sum, unrounded to f32: ``ceil(n·F_i − u0)`` clipped to [0, n], the last
+    entry ``n``."""
+    import torch
+
+    from genjax_torch.core import random
+
+    cum = torch.cumsum(torch.exp(lw.double() - lw.double().max()), 0)
+    u0 = random.uniform(key.to(lw.device), ()).double()
+    out = torch.clamp(torch.ceil(cum * (n / cum[-1]) - u0), 0, n).long()
+    out[-1] = n
+    return out
+
+
+def count_ties(cc, cc64) -> tuple:
+    """``(ties, largest)``: the particles whose f32 cumulative count
+    differs from the float64 one (a grid point between the two sums), and
+    the largest difference in destinations."""
+    diff = (cc.long() - cc64.long()).abs()
+    return int((diff > 0).sum()), int(diff.max())
+
+
+def layout_slices(n: int, d: int) -> list:
+    """Rank ``r``'s slice ``[r·n/D, (r+1)·n/D)`` of an axis of ``n``, for
+    every rank of a world of ``d``."""
+    per = n // d
+    return [slice(r * per, (r + 1) * per) for r in range(d)]
+
+
+def layout_mismatches(fn, x, worlds=(2, 4, 8)) -> dict:
+    """For each world size D: the ranks whose ``fn`` on their slice of
+    ``x``'s leading axis is not, bit for bit, their rows of ``fn(x)``
+    (each output's leading axis split D ways like the input's).
+    ``{D: ranks that differ}``; all 0 is layout independence."""
+    import torch
+
+    whole = fn(x)
+    out = {}
+    for d in worlds:
+        bad = 0
+        for r, sl in enumerate(layout_slices(x.shape[0], d)):
+            part = fn(x[sl])
+            for w, p in zip(whole, part):
+                rows = w.shape[0] // d
+                if not torch.equal(w[r * rows:(r + 1) * rows], p):
+                    bad += 1
+                    break
+        out[d] = bad
+    return out
 
 
 def edits_phase(dev, card: str, n: int = 1 << 19) -> dict:
@@ -1908,6 +1976,381 @@ def pt_map_phase(dev, card: str, zero_counts, counts) -> dict:
     return {"pt": pt, "map_laplace": ml}
 
 
+#: Phase 28's sizes (a CPU rehearsal shrinks them): config 4 sharded
+#: (particles, steps), the linear model's steps, the layout check's
+#: weights and HMM steps, SIR's particles, the HMM (states, steps, the
+#: bitwise case's steps), NUTS (chains, warmup, samples, depth), SVGD
+#: (config 10's C10_SIZE).
+DIST_SIZE = {"pf": (1 << 20, 32), "linear_steps": 15, "layout_n": 1 << 20,
+             "layout_hmm_t": 16384, "sir": 1 << 20,
+             "hmm": (64, 65536, 1024), "nuts": (2048, 20, 20, 6)}
+#: Phase 28's bounds: the two config-4 drivers' 0.25 and the linear
+#: model's 0.05 (phase 6), the CDF kernel's 4 destinations (phase 3),
+#: SIR's log Z against ImportanceK's (1e-5 relative: the same particles,
+#: another summation order), the HMM's log marginal (1e-6 relative) and
+#: alphas (rtol 2e-5, atol 1e-4 where the filtering probability is above
+#: e^-80, tests/parallel/test_seq.py:57-60).
+DIST_PF_BOUND, DIST_KALMAN_BOUND, DIST_CDF_BOUND = 0.25, 0.05, 4
+DIST_SIR_REL, DIST_HMM_REL = 1e-5, 1e-6
+
+
+def _dist_measure(label: str, card: str, run, steps: int, work: float,
+                  unit: str, zero_counts, counts, first=None) -> dict:
+    """Time ``run(i)`` (a whole run, synchronized) three times, the first
+    with the launch counters and the collective log set to 0 just before
+    it, and profile one more run: the median wall, the rate (``work``
+    per second), the collectives a step by op with their bytes, the host
+    syncs a step (reads of the ring's counts and of the backward
+    sampler's tables), device-busy time, idle share, device ops a step
+    and the peak device memory above what is held before."""
+    import torch
+
+    from genjax_torch.parallel import comm
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero_counts()
+    comm.reset()
+    t0 = time.perf_counter()
+    result = run(0)
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter() - t0
+    launches = counts()
+    by_op = {k: {f: v[f] / steps for f in v} for k, v in comm.by_op().items()}
+    syncs, trips = comm.host_syncs, comm.ring_trips
+    max_elements = comm.max_elements()
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    walls, wall = _median_wall(wall0, lambda i: run(i + 1))
+    p_wall, busy, ops = device_busy(lambda: run(9))
+    out = {"result": result, "launches": launches, "wall_ms":
+           [w * 1e3 for w in walls], "median_wall_ms": wall * 1e3,
+           f"{unit}_per_s": work / wall, "collectives_per_step": by_op,
+           "comm_host_syncs_per_step": syncs / steps, "ring_trips": trips,
+           "max_collective_elements": max_elements,
+           "profiled_wall_ms": p_wall, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / p_wall,
+           "device_ops_per_step": ops / steps, "peak_gb": peak}
+    print(f"[28{label}] {card}: wall per run "
+          f"{[round(w * 1e3, 2) for w in walls]} ms (median "
+          f"{wall * 1e3:.2f} ms), {work / wall:.6g} {unit}/s; collectives a "
+          f"step {by_op}; ring trips {trips}; comm host syncs a step "
+          f"{syncs / steps:.3f}; profiled run {p_wall:.1f} ms, device busy "
+          f"{busy:.3f} ms, idle share {out['idle_share']:.4f}, "
+          f"{ops / steps:.1f} device ops a step; peak device memory "
+          f"{peak:.3f} GB; launches {launches}", flush=True)
+    return out
+
+
+def distributed_phase(dev, card: str, zero_counts, counts) -> dict:
+    """Phase 28: the distributed layer over NCCL in a world of one (the
+    one card), at full width: config 4 sharded (28a), the layout
+    independence of the rank-local parts at D = 2, 4, 8 shapes (28b), the
+    product resample at 2^20 against the CDF kernel and float64 counts
+    (28c), sharded SIR (28d), the time-sharded HMM (28e), NUTS with
+    ``mesh=`` (28f) and sharded SVGD (28g)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import genjax_torch
+    from genjax_torch import entry as E
+    from genjax_torch import parallel as P
+    from genjax_torch.core import random
+    from genjax_torch.inference import warmup_chains
+    from genjax_torch.inference import Target
+    from genjax_torch.inference.adaptation import group_sums
+    from genjax_torch.lang.distributions.discrete_hmm import (
+        DiscreteHMMConfiguration,
+        forward_filter,
+    )
+    from genjax_torch.ops import cdf_counts
+    from genjax_torch.parallel import collectives as PC
+    from genjax_torch.parallel.seq import block_summaries
+    from genjax_torch.inference.svgd import _rbf_phi
+    from genjax_torch.parallel.svgd import _phi_block
+
+    store = tempfile.mkdtemp(prefix="genjax_nccl_")
+    P.init_distributed(num_processes=1, init_method=f"file://{store}/store",
+                       device="cuda")
+    out = {}
+    try:
+        check(dist.get_backend() == "nccl", f"phase 28: the group's backend "
+              f"is {dist.get_backend()}, not nccl")
+        mesh = P.particle_mesh("cuda")
+        print(f"[28 group] {card}: NCCL world of {dist.get_world_size()} "
+              f"through a file:// store, mesh {mesh}", flush=True)
+
+        # -- 28a. config 4 sharded -------------------------------------
+        n, steps = DIST_SIZE["pf"]
+        run_sh, work = E.build_sharded_pf(n, steps, device=dev)
+        res = _dist_measure("a config 4 sharded", card, lambda i: float(
+            run_sh(random.key(i, device=dev))), steps, work,
+            "particle_steps", zero_counts, counts)
+        ref_pf = float(E.build_pf(n, steps, device=dev)[0](
+            random.key(0, device=dev)))
+        lz = res["result"]
+        check(math.isfinite(lz) and abs(lz - ref_pf) < DIST_PF_BOUND,
+              f"28a: sharded log Z {lz} vs build_pf {ref_pf}")
+        check(res["ring_trips"] == 0, f"28a: {res['ring_trips']} ring trips")
+        check(res["max_collective_elements"] < n, "28a: a collective "
+              f"carried {res['max_collective_elements']} elements")
+        _no_kernel(res["launches"], "28a (the product path)")
+        lin_steps = DIST_SIZE["linear_steps"]
+        run_lin, _ = E.build_sharded_pf(n, lin_steps, model="linear",
+                                        device=dev)
+        lz_lin = float(run_lin(random.key(314159, device=dev)))
+        want_lin = E.kalman_loglik(E.linear_observations(lin_steps))
+        check(abs(lz_lin - want_lin) < DIST_KALMAN_BOUND,
+              f"28a: linear log Z {lz_lin} vs Kalman {want_lin}")
+        run_base, _ = E.build_sharded_pf(n, steps, use_collectives=False,
+                                         device=dev)
+        base = _dist_measure("a config 4 gathered baseline", card,
+                             lambda i: float(run_base(random.key(
+                                 i, device=dev))), steps, work,
+                             "particle_steps", zero_counts, counts)
+        resamples = int(round(base["collectives_per_step"].get(
+            "all_gather/resample_weights", {"calls": 0})["calls"] * steps))
+        check(base["launches"]["cdf_counts"] == resamples,
+              f"28a baseline: {base['launches']['cdf_counts']} CDF launches "
+              f"for {resamples} resamples")
+        check(abs(base["result"] - lz) < DIST_PF_BOUND,
+              f"28a baseline log Z {base['result']} vs {lz}")
+        out["config_4_sharded"] = {**res, "build_pf_log_z": ref_pf,
+                                   "linear_log_z": lz_lin,
+                                   "kalman_log_z": want_lin,
+                                   "baseline": base,
+                                   "baseline_resamples": resamples}
+        print(f"[28a config 4 sharded] {card}: {n} x {steps}: log Z {lz:.5f} "
+              f"vs build_pf {ref_pf:.5f} (bound {DIST_PF_BOUND}); linear "
+              f"{lz_lin:.5f} vs Kalman {want_lin:.5f} (bound "
+              f"{DIST_KALMAN_BOUND}); ring trips {res['ring_trips']}, "
+              f"largest collective {res['max_collective_elements']} "
+              f"elements (n = {n}); baseline log Z {base['result']:.5f}, "
+              f"{base['launches']['cdf_counts']} CDF launches for "
+              f"{resamples} resamples", flush=True)
+
+        # -- 28b. layout independence of the rank-local parts ----------
+        t_layout = time.perf_counter()
+        n_l = DIST_SIZE["layout_n"]
+        lw = 3.0 * random.normal(random.key(21, device=dev), (n_l,))
+        m = lw.max()
+        b = PC._layout_free_block(n_l, 256)
+        cdf_bad = layout_mismatches(
+            lambda x: (lambda w, s: (w, s.T))(*PC.block_partials(x, m, b)),
+            lw)
+        within, stats = PC.block_partials(lw, m, b)
+        seeds, bcum_excl, _, total_rep, _ = PC.combine_partials(stats)
+        key = random.key(22, device=dev)
+        starts1, ends1 = PC._blocked_counts(key, within, seeds, bcum_excl,
+                                            total_rep, n_l, 1, 0)
+        count_bad = {}
+        for d in (2, 4, 8):
+            bad = 0
+            for r, sl in enumerate(layout_slices(n_l, d)):
+                w_r, _ = PC.block_partials(lw[sl], m, b)
+                s_r, e_r = PC._blocked_counts(key, w_r, seeds, bcum_excl,
+                                              total_rep, n_l, d, r)
+                bad += not (torch.equal(s_r, starts1[sl])
+                            and torch.equal(e_r, ends1[sl]))
+            count_bad[d] = bad
+        chains = DIST_SIZE["nuts"][0]
+        zs = random.normal(random.key(23, device=dev), (chains, 2))
+        acc = random.uniform(random.key(24, device=dev), (chains,))
+        gb = PC._layout_free_block(chains, 8)
+        x = torch.cat([zs, acc[:, None]], 1)
+        chain_bad = layout_mismatches(lambda v: (group_sums(v, gb),), x)
+        s_hmm, t_lay = DIST_SIZE["hmm"][0], DIST_SIZE["layout_hmm_t"]
+        config = DiscreteHMMConfiguration.circulant(s_hmm, s_hmm, device=dev)
+        obs_ll = config.observation_logits[
+            :, E.hmm_observations(s_hmm, t_lay, dev)].T.contiguous()
+        hb = PC._layout_free_block(t_lay, 256)
+        whole = block_summaries(config, obs_ll, hb, True)
+        seq_bad = {}
+        for d in (2, 4, 8):
+            bad = 0
+            for r, sl in enumerate(layout_slices(t_lay, d)):
+                part = block_summaries(config, obs_ll[sl], hb, r == 0)
+                rows = slice(r * whole[0].shape[0] // d,
+                             (r + 1) * whole[0].shape[0] // d)
+                bad += not (torch.equal(part[0], whole[0][rows])
+                            and torch.equal(part[1], whole[1][rows]))
+            seq_bad[d] = bad
+        parts, _, _, dd = C10_SIZE
+        xs = random.normal(random.key(27, device=dev), (parts, dd))
+        grads = random.normal(random.key(28, device=dev), (parts, dd))
+        svgd_bad = layout_mismatches(
+            lambda x: (_phi_block(x, xs, grads, 256),), xs)
+        for name, bad in (("block stats", cdf_bad), ("counts", count_bad),
+                          ("chain partials", chain_bad),
+                          ("seq summaries", seq_bad),
+                          ("SVGD rows", svgd_bad)):
+            check(not any(bad.values()), f"28b: {name} differ from the "
+                  f"one-rank rows on ranks {bad}")
+        out["layout"] = {"block_stats": cdf_bad, "counts": count_bad,
+                         "chain_partials": chain_bad, "seq_summaries":
+                         seq_bad, "svgd_rows": svgd_bad, "n": n_l, "block": b, "chains": chains,
+                         "chain_group": gb, "hmm_steps": t_lay,
+                         "hmm_block": hb,
+                         "check_s": time.perf_counter() - t_layout}
+        print(f"[28b layout] {card}: ranks differing from the one-rank rows "
+              f"at D = 2, 4, 8: block stats of {n_l} weights (B = {b}) "
+              f"{cdf_bad}, offspring intervals {count_bad}, chain-group "
+              f"partials of {chains} x 2 (group {gb}) {chain_bad}, seq block "
+              f"summaries S = {s_hmm}, T = {t_lay} (block {hb}) {seq_bad}, "
+              f"SVGD direction rows of {parts} x {dd} {svgd_bad}; "
+              f"the checks took {out['layout']['check_s']:.2f} s",
+              flush=True)
+
+        # -- 28c. the product resample at 2^20 --------------------------
+        idx = torch.arange(n_l, dtype=torch.float32, device=dev)
+        res = _dist_measure("c resample", card, lambda i: PC.ring_resample_step(
+            key, lw, (idx,), mesh), 1, n_l, "particles", zero_counts, counts)
+        (anc,), _, _ = res.pop("result")
+        _no_kernel(res["launches"], "28c (the product path)")
+        cc = torch.cumsum(torch.bincount(anc.long(), minlength=n_l), 0)
+        kern = cdf_counts.systematic_cumulative(key, lw, n_l).long()
+        cc64 = float64_counts(key, lw, n_l)
+        to_kernel = int((cc - kern).abs().max())
+        ties, largest = count_ties(cc, cc64)
+        check(to_kernel <= DIST_CDF_BOUND, f"28c: ring counts {to_kernel} "
+              f"destinations from the CDF kernel's")
+        check(largest <= 1, f"28c: ring counts {largest} destinations from "
+              "the float64 counts")
+        out["resample"] = {**res, "n": n_l, "to_kernel": to_kernel,
+                           "float64_ties": ties, "float64_largest": largest}
+        print(f"[28c resample] {card}: ring_resample_step at {n_l}: counts "
+              f"within {to_kernel} destinations of the CDF kernel's (bound "
+              f"{DIST_CDF_BOUND}); against float64 counts {ties} f32 ties, "
+              f"each {largest} destination", flush=True)
+
+        # -- 28d. sharded SIR -------------------------------------------
+        k = DIST_SIZE["sir"]
+        sir, _ = E.build_sharded_sir(k, device=dev)
+        res = _dist_measure("d SIR", card, lambda i: tuple(
+            float(v) for v in sir(random.key(i, device=dev))), 1, k,
+            "particles", zero_counts, counts)
+        mean, logz = res["result"]
+        ref_mean, ref_logz = (float(v) for v in E.entry(k, device=dev)[0](
+            random.key(0, device=dev)))
+        # Posterior sd of Beta(3, 2) is 0.2; the standard error of a
+        # weighted mean is that over the root of the weights' ESS.
+        target = Target(E.quickstart_model(), (2.0, 2.0),
+                        genjax_torch.C["v"].set(True))
+        col = P.sharded_importance(target, k, mesh)(
+            random.split(random.key(0, device=dev))[1])
+        ess = float(P.blocked_ess(col.get_log_weights(), mesh))
+        se = 0.2 / math.sqrt(ess)
+        check(abs(mean - 0.6) <= 4 * se, f"28d: mean {mean} vs 0.6 (se {se})")
+        check(abs(logz - ref_logz) <= DIST_SIR_REL * abs(ref_logz),
+              f"28d: log Z {logz} vs ImportanceK {ref_logz}")
+        out["sir"] = {**res, "importance_k_log_z": ref_logz,
+                      "importance_k_mean": ref_mean, "ess": ess, "se": se}
+        print(f"[28d SIR] {card}: K = {k}: mean {mean:.6f} (0.6, 4 se "
+              f"{4 * se:.3g}), log Z {logz:.7f} vs ImportanceK "
+              f"{ref_logz:.7f} (rel {abs(logz - ref_logz) / abs(ref_logz):.3g}"
+              f", bound {DIST_SIR_REL})", flush=True)
+
+        # -- 28e. the time-sharded HMM ----------------------------------
+        s_hmm, t_hmm, t_bit = DIST_SIZE["hmm"]
+        run_h, (config, obs) = E.build_time_sharded_hmm(s_hmm, t_hmm,
+                                                        device=dev)
+        res = _dist_measure("e time-sharded HMM", card, lambda i: run_h(
+            random.key(i, device=dev)), t_hmm, t_hmm, "steps", zero_counts,
+            counts)
+        alphas, lz_h, path = res.pop("result")
+        t0 = time.perf_counter()
+        a_ref, lz_ref = forward_filter(config, obs)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        rel = abs(float(lz_h) - float(lz_ref)) / abs(float(lz_ref))
+        check(rel <= DIST_HMM_REL, f"28e: log marginal {float(lz_h)} vs "
+              f"forward_filter {float(lz_ref)} ({rel} relative)")
+        live = (a_ref - torch.logsumexp(a_ref, 1, keepdim=True)) > -80.0
+        close = (alphas - a_ref).abs() <= 1e-4 + 2e-5 * a_ref.abs()
+        check(bool(close[live].all()), "28e: alphas off where the filtering "
+              "probability is above e^-80")
+        check(path.shape == (t_hmm,) and bool(((path >= 0)
+                                               & (path < s_hmm)).all()),
+              "28e: the sampled path is out of range")
+        run_b, (cfg_b, obs_b) = E.build_time_sharded_hmm(
+            s_hmm, t_bit, block=t_bit, device=dev)
+        a_b, lz_b, _ = run_b(random.key(3, device=dev))
+        a_fb, lz_fb = forward_filter(cfg_b, obs_b)
+        check(torch.equal(a_b, a_fb) and torch.equal(lz_b, lz_fb),
+              f"28e: T = {t_bit}, block = T is not forward_filter's bits")
+        out["hmm"] = {**res, "log_z": float(lz_h),
+                      "forward_filter_log_z": float(lz_ref), "rel": rel,
+                      "forward_filter_s": seq_s, "live_alphas":
+                      int(live.sum())}
+        print(f"[28e HMM] {card}: S = {s_hmm}, T = {t_hmm} (block "
+              f"{PC._layout_free_block(t_hmm, 256)}): log marginal "
+              f"{float(lz_h):.4f} vs forward_filter {float(lz_ref):.4f} "
+              f"({rel:.3g} rel, bound {DIST_HMM_REL}), alphas within rtol "
+              f"2e-5 / atol 1e-4 on {int(live.sum())} entries above e^-80; "
+              f"the sequential filter took {seq_s:.2f} s; T = {t_bit} with "
+              "block = T bitwise forward_filter", flush=True)
+
+        # -- 28f. NUTS with mesh= ---------------------------------------
+        chains, warm, samples, depth = DIST_SIZE["nuts"]
+        chain_mesh = P.particle_mesh("cuda", "chains")
+        run_m, _ = E.build_nuts_regression(chains, warm, samples, depth,
+                                           device=dev, mesh=chain_mesh)
+        run_n, _ = E.build_nuts_regression(chains, warm, samples, depth,
+                                           device=dev)
+        res = _dist_measure("f NUTS mesh=", card, lambda i: run_m(
+            random.key(i, device=dev)), warm + samples,
+            chains * (warm + samples), "chain_transitions", zero_counts,
+            counts)
+        chm_m, _ = res.pop("result")
+        chm_n, _ = run_n(random.key(0, device=dev))
+        logd = _regression_logdensity(dev, chains)
+        z0 = random.normal(random.key(25, device=dev), (chains, 2))
+        w_m = warmup_chains(logd, z0, random.key(26, device=dev), warm, depth,
+                            mesh=chain_mesh)
+        w_n = warmup_chains(logd, z0, random.key(26, device=dev), warm, depth)
+        same = all(torch.equal(chm_m[a], chm_n[a]) for a in ("slope", "icept"))
+        same_w = all(torch.equal(a, b) for a, b in zip(w_m, w_n))
+        check(same and same_w, f"28f: mesh= draws equal {same}, eps / mass "
+              f"/ warm positions equal {same_w}")
+        out["nuts"] = res
+        print(f"[28f NUTS] {card}: {chains} chains x ({warm} + {samples}), "
+              f"max_depth {depth}: draws, eps and mass with mesh= bitwise "
+              "those of mesh=None", flush=True)
+
+        # -- 28g. sharded SVGD ------------------------------------------
+        parts, svgd_steps, bb, dd = C10_SIZE
+        run_s, _, exact = E.build_sharded_svgd(parts, svgd_steps, bb, dd,
+                                               device=dev)
+        res = _dist_measure("g SVGD", card, lambda i: run_s(random.key(
+            12 + i, device=dev)), svgd_steps, parts * svgd_steps,
+            "particle_grad_steps", zero_counts, counts)
+        w = res.pop("result")
+        err = float((w.double().mean(0).cpu()
+                     - torch.tensor(exact["mean"])).abs().max())
+        check(err <= C10_MEAN_BOUND, f"28g: ensemble mean {err} from the "
+              "exact posterior mean")
+        # One sharded direction at full width on a cloud offset from 0
+        # (where the repulsion's two sums cancel most digits) against the
+        # same direction in float64.
+        xs = random.normal(random.key(40, device=dev), (parts, dd)) + 3.0
+        grads = random.normal(random.key(41, device=dev), (parts, dd))
+        phi64 = _rbf_phi(xs.double(), grads.double(), 256)
+        phi_rel = float((_phi_block(xs, xs, grads, 256).double() - phi64)
+                        .abs().max() / phi64.abs().max())
+        check(phi_rel <= C10_PHI_REL_BOUND, f"28g: the sharded direction "
+              f"{phi_rel} (relative) from float64")
+        out["svgd"] = {**res, "post_mean_err": err, "phi_rel_err": phi_rel}
+        print(f"[28g SVGD] {card}: {parts} x {svgd_steps}: max |ensemble "
+              f"mean - exact| {err:.5f} (bound {C10_MEAN_BOUND}); one "
+              f"sharded direction on a cloud offset by 3 vs float64 "
+              f"{phi_rel:.3g} rel (bound {C10_PHI_REL_BOUND})", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1957,14 +2400,6 @@ def main() -> int:
           flush=True)
 
     # -- 3. cdf kernel vs plain --------------------------------------------
-    def exact_counts(key, lw, n):
-        """The counts from a float64 prefix sum, unrounded to f32."""
-        cum = torch.cumsum(torch.exp(lw.double() - lw.double().max()), 0)
-        u0 = random.uniform(key, ()).double()
-        out = torch.clamp(torch.ceil(cum * (n / cum[-1]) - u0), 0, n).long()
-        out[-1] = n
-        return out
-
     # The plain version's f32 cumsum drifts by ulps of a total that grows
     # with n: at 2^24 it lands about a dozen destinations from the exact
     # counts, while the kernel sums in double across tiles. There the
@@ -1987,7 +2422,7 @@ def main() -> int:
             check(int(counts.sum()) == n, f"cdf {regime} n={n}: sum != n")
             err = int((cc - ref).abs().max())
             if n == big_n:
-                ex = exact_counts(key, lw, n)
+                ex = float64_counts(key, lw, n)
                 for name, diff in (("kernel - float64", cc - ex),
                                    ("plain - float64", ref - ex),
                                    ("kernel - plain", cc - ref)):
@@ -2711,6 +3146,10 @@ def main() -> int:
     config10 = svgd_phase(dev, card, zero_counts, counts)
     pt_map = pt_map_phase(dev, card, zero_counts, counts)
 
+    # -- 28. the distributed layer over NCCL -------------------------------
+    dist28 = distributed_phase(dev, card, zero_counts, counts)
+    base28 = dist28["config_4_sharded"]["baseline"]["launches"]
+
     lm_main = lm_rows[s_hmm]
     record = {"kernels": [
         {"name": "cdf_counts", "route": "cuda",
@@ -2720,7 +3159,8 @@ def main() -> int:
                       + c6_launches["cdf_counts"] + slds["cdf_launches"]
                       + mixture["sir_launches"]["cdf_counts"]
                       + trace_level["trace_pf"]["launches"]["cdf_counts"]
-                      + trace_level["data_smc"]["launches"]["cdf_counts"]),
+                      + trace_level["data_smc"]["launches"]["cdf_counts"]
+                      + base28["cdf_counts"]),
          "launches_by_run": {
              **{k: v["cdf_counts"] for k, v in by_run.items()},
              "config_4_path": launches["cdf_counts"],
@@ -2733,7 +3173,8 @@ def main() -> int:
              "build_trace_pf": trace_level["trace_pf"]["launches"][
                  "cdf_counts"],
              "build_data_smc": trace_level["data_smc"]["launches"][
-                 "cdf_counts"]},
+                 "cdf_counts"],
+             "build_sharded_pf_baseline": base28["cdf_counts"]},
          "max_abs_err": cdf_err,
          "ms": cdf_ms, "plain_ms": cdf_plain_ms,
          "bound_ms": cdf_bound, "bound_by": cdf_by, "library_ms": None,
@@ -2794,7 +3235,7 @@ def main() -> int:
         "trace_level": trace_level, "gensp": gensp, "config_5": config5,
         "config_9": config9, "config_10": config10,
         "parallel_tempering": pt_map["pt"],
-        "map_laplace": pt_map["map_laplace"]}
+        "map_laplace": pt_map["map_laplace"], "distributed": dist28}
     print(card, flush=True)
     print(json.dumps(finite_or_none(record)), flush=True)
     print(json.dumps({"ok": True, "device": {

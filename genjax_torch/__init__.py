@@ -14,7 +14,9 @@ the particle-samplers slice (``ChangeTarget``, the GenSP / VI methods
 and ``marginal``, the row resamplers, PMMH, SMC², particle Gibbs, the
 trace-level particle filter and data-annealed SMC; bench config 7), and
 ADEV with variational inference, SVGD, parallel tempering and MAP /
-Laplace (bench configs 5, 9 and 10),
+Laplace (bench configs 5, 9 and 10), and the distributed layer
+(``parallel``: sharded SMC, particle filtering, NUTS, SVGD and time-axis
+HMM filtering over ``torch.distributed``),
 with every kernel of the JAX package written by hand for Hopper
 (``ops/``). The package imports ``torch`` and never ``jax``.
 """
@@ -87,7 +89,7 @@ from genjax_torch.lang.combinators import (
     vmap,
 )
 from genjax_torch.core import random  # noqa: E402
-from genjax_torch import adev, inference, models, ops  # noqa: E402,F401
+from genjax_torch import adev, inference, models, ops, parallel  # noqa: E402,F401
 from genjax_torch.inference import (  # noqa: E402
     HMC,
     MALA,
@@ -183,6 +185,7 @@ __all__ = [
     "multi_switch",
     "nuts_kernel",
     "ops",
+    "parallel",
     "or_else",
     "random",
     "reduce",

@@ -51,7 +51,15 @@
   closed-form trajectory, a hand-written gradient and
   :func:`blr_exact`; :func:`build_pt` and :func:`build_map_laplace`:
   parallel tempering on config 6's model and MAP / Laplace on config
-  10's regression.
+  10's regression;
+- :func:`build_sharded_pf`, :func:`build_sharded_sir`,
+  :func:`build_time_sharded_hmm`, :func:`build_sharded_svgd` and
+  ``build_nuts_regression(mesh=...)``: config 4's filter (and the
+  linear-Gaussian model), config 1's SIR, the time-sharded HMM filter
+  and sampler, config 10's SVGD and config 2's NUTS with each rank of
+  the initialized process group running its slice
+  (``genjax_torch.parallel``). They take the mesh over the whole world
+  unless given one, and raise without a process group.
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (or another device); without a card it raises rather
@@ -171,6 +179,11 @@ __all__ = [
     "tempered_exact_posterior",
     "build_pt",
     "build_map_laplace",
+    "build_sharded_pf",
+    "build_sharded_sir",
+    "hmm_observations",
+    "build_time_sharded_hmm",
+    "build_sharded_svgd",
 ]
 
 
@@ -505,17 +518,19 @@ def regression_exact_posterior(xs=None, ys=None):
 
 def build_nuts_regression(n_chains: int = 2048, num_warmup: int = 200,
                           num_samples: int = 1600, max_depth: int = 6,
-                          device=None):
+                          device=None, mesh=None):
     """Bench config 2: ``run_nuts`` on :func:`regression_model` with
     :func:`regression_data`. Returns ``(run, target)``: ``run(key) ->
-    (choices, infos)``, the draws leading with ``(chains, samples)``."""
+    (choices, infos)``, the draws leading with ``(chains, samples)``.
+    ``mesh``: run this rank's slice of the chains over the mesh's
+    ``"chains"`` axis (the draws are then the slice's)."""
     xs, ys = regression_data(device)
     target = Target(regression_model(), (xs,), g.C["ys"].set(ys))
 
     def run(key):
         return run_nuts(target, key, n_chains=n_chains,
                         num_warmup=num_warmup, num_samples=num_samples,
-                        max_depth=max_depth)
+                        max_depth=max_depth, mesh=mesh)
 
     return run, target
 
@@ -1186,3 +1201,151 @@ def build_map_laplace(b: int = 1024, d: int = 64, n_steps: int = 1000,
                                           transforms=res.transforms)
 
     return run, blr_exact(x, y)
+
+
+def _world_mesh(mesh, device: torch.device, axis_name: str):
+    """``mesh``, or the 1-D mesh over the initialized world on
+    ``device``'s type (raising without a process group)."""
+    from genjax_torch.parallel import particle_mesh
+
+    return mesh if mesh is not None else particle_mesh(device.type,
+                                                       axis_name)
+
+
+def build_sharded_pf(n_particles: int = 2 ** 20, n_steps: int = 32,
+                     model: str = "tracking", use_collectives: bool = True,
+                     mesh=None, device=None):
+    """Config 4 through ``parallel.sharded_particle_filter``: this rank
+    runs its slice of the particles on the per-particle path (keys
+    ``fold_in(k, i)``). ``model="tracking"`` is config 4's model and
+    observations; ``"linear"`` the linear-Gaussian model on
+    ``linear_observations(n_steps)``, initialized at zero, whose exact log
+    Z is :func:`kalman_loglik`. Returns ``(run, work)``: ``run(key) ->``
+    the replicated log Z, ``work`` the particle-steps of one run."""
+    from genjax_torch.parallel import sharded_particle_filter
+
+    device = _device(device)
+    mesh = _world_mesh(mesh, device, "particles")
+    if model == "tracking":
+        ys = tracking_observations(n_steps, device)
+
+        def init(keys):
+            return random.normal(keys), torch.zeros((), device=keys.device)
+
+        def step(keys, xs, y):
+            xs_new = tracking_propagate(xs, random.normal(keys))
+            return xs_new, tracking_loglik(xs_new, y)
+    elif model == "linear":
+        ys = torch.as_tensor(linear_observations(n_steps), device=device)
+
+        def init(keys):
+            return (torch.zeros(keys.shape[:-1], device=keys.device),
+                    torch.zeros((), device=keys.device))
+
+        def step(keys, xs, y):
+            xs_new = linear_propagate(xs, random.normal(keys))
+            return xs_new, linear_loglik(xs_new, y)
+    else:
+        raise ValueError(f"build_sharded_pf: model {model!r} is neither "
+                         "'tracking' nor 'linear'")
+    pf = sharded_particle_filter(init, step, n_particles, mesh,
+                                 use_collectives=use_collectives)
+
+    def run(key):
+        final, _ = pf(key.to(device), ys)
+        return final.log_z
+
+    return run, n_particles * n_steps
+
+
+def build_sharded_sir(k_particles: int = 2 ** 20, mesh=None, device=None):
+    """Config 1's SIR through ``parallel.sharded_importance``: this rank's
+    slice of the ``k_particles``, each on the key ImportanceK gives it
+    (``fold_in(split(key)[1], i)``), so the ensemble is :func:`entry`'s
+    on the same key. Returns ``(sir_step, (key,))``: ``sir_step(key) ->
+    (posterior mean of p, log Ẑ)``, both replicated."""
+    from genjax_torch.parallel import blocked_logz, weighted_mean
+    from genjax_torch.parallel.smc import sharded_importance
+
+    device = _device(device)
+    mesh = _world_mesh(mesh, device, "particles")
+    target = Target(quickstart_model(), (2.0, 2.0), g.C["v"].set(True))
+    importance = sharded_importance(target, k_particles, mesh)
+
+    def sir_step(key):
+        col = importance(random.split(key.to(device))[1])
+        lw = col.get_log_weights()
+        ps = col.get_particles().get_choices()["p"]
+        return weighted_mean(lw, ps, mesh), blocked_logz(lw, mesh)
+
+    return sir_step, (random.key(0, device=device),)
+
+
+def hmm_observations(n_states: int, n_steps: int, device=None):
+    """``n_steps`` observations drawn uniformly from ``n_states`` symbols
+    on ``key(3)`` (the time-sharded filter's input; the filter's answer
+    does not need them to come from the model)."""
+    k = random.key(3, device=_device(device))
+    return random.bits(k, (n_steps,)) % n_states
+
+
+def build_time_sharded_hmm(n_states: int = 64, n_steps: int = 65536,
+                           block: int | None = None, mesh=None,
+                           device=None):
+    """The time-sharded forward filter and backward sampler
+    (``parallel.seq``) on ``circulant(S, S)`` with
+    :func:`hmm_observations`; this rank holds its ``T/D`` steps. Returns
+    ``(run, (config, observations))``: ``run(key) -> (alphas, log
+    marginal, path)``, the rank's rows of ``alphas`` and of the sampled
+    path and the replicated log marginal; ``observations`` are all
+    ``T``."""
+    from genjax_torch.parallel import (
+        shard_leading_axis,
+        time_sharded_backward_sample,
+        time_sharded_filter,
+    )
+
+    device = _device(device)
+    mesh = _world_mesh(mesh, device, "time")
+    config = DiscreteHMMConfiguration.circulant(n_states, n_states,
+                                                device=device)
+    obs = hmm_observations(n_states, n_steps, device)
+    local = shard_leading_axis(obs, mesh, "time")
+
+    def run(key):
+        alphas, log_z = time_sharded_filter(config, local, mesh, "time",
+                                            block)
+        z = time_sharded_backward_sample(key.to(device), config, alphas,
+                                         mesh, "time", block)
+        return alphas, log_z, z
+
+    return run, (config, obs)
+
+
+def build_sharded_svgd(n_particles: int = 4096, n_steps: int = 600,
+                       b: int = 1024, d: int = 64, step_size: float = 0.05,
+                       h_rows: int = 256, mesh=None, device=None):
+    """Bench config 10 through ``parallel.run_sharded_svgd``: this rank's
+    slice of the ensemble, drawn from the prior on the keys ``run_svgd``
+    gives the same particles. Returns ``(run, target, exact)``:
+    ``run(key) ->`` the rank's rows of the ensemble's ``w`` and
+    :func:`blr_exact`."""
+    from genjax_torch.inference.svgd import svgd_problem
+    from genjax_torch.parallel import run_sharded_svgd
+    from genjax_torch.parallel.mesh import rank_range
+
+    device = _device(device)
+    mesh = _world_mesh(mesh, device, "particles")
+    particle_range = rank_range(n_particles, mesh, "particles")
+    x, y = blr_data(b, d, device)
+    target = Target(blr_model(b, d), (x,), g.C["y"].set(y))
+
+    def run(key):
+        xs, logdensity, finish = svgd_problem(
+            target, key.to(device), n_particles,
+            particle_range=particle_range)
+        xs = run_sharded_svgd(logdensity, xs, n_steps, step_size, mesh,
+                              h_rows=h_rows)
+        return finish(xs)["w"]
+
+    return run, target, blr_exact(x, y)

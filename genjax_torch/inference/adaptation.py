@@ -3,11 +3,11 @@ mass matrix, each estimated across all chains (counterpart of
 ``genjax_tpu/inference/adaptation.py``), and ``run_nuts``, NUTS on a
 ``Target`` from the prior to the draws.
 
-The chains are a key batch. The cross-chain statistics are a plain
-reduction over the chain axis, grouped in blocks of up to 8 chains as
-the JAX package groups them. The JAX package's ``mesh`` path (chains
-sharded over devices, reductions as collectives) is not ported: passing
-``mesh`` raises until the ``parallel/`` slice (ROADMAP queue 1 item 9).
+The chains are a key batch. With ``mesh``, each rank runs its slice of
+the chains (keys of their global indices) and the cross-chain statistics
+become all-gathers of group partials; ``mesh=None`` runs the same
+reduction with no gather, so both give the same bits
+(:func:`_cross_chain_stats`).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from genjax_torch.core import random
+from genjax_torch.core.fixed_sum import tree_sum
 from genjax_torch.core.pytree import ravel_pytree, tree_map
 from genjax_torch.gfi.choice_map import ChoiceMap, partition_values
 from genjax_torch.inference.requests.nuts import (
@@ -27,6 +28,8 @@ from genjax_torch.inference.requests.nuts import (
 )
 from genjax_torch.inference.smc import lift_target
 from genjax_torch.inference.sp import Target
+from genjax_torch.parallel.collectives import _layout_free_block, all_gather
+from genjax_torch.parallel.mesh import mesh_axis, rank_range
 from genjax_torch.inference.transforms import (
     constrain_choices,
     resolve_transforms,
@@ -35,13 +38,6 @@ from genjax_torch.inference.transforms import (
 )
 
 __all__ = ["DualAveragingState", "warmup_chains", "run_nuts"]
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "NUTS over a device mesh is not ported yet: it comes with the "
-            "parallel/ slice (ROADMAP queue 1 item 9)")
 
 
 class DualAveragingState(NamedTuple):
@@ -104,30 +100,53 @@ def welford_variance(state: WelfordState) -> torch.Tensor:
     return state.m2 / torch.clamp(state.count - 1.0, min=1.0)
 
 
-def _chain_block(n: int, cap: int = 8, reserve_pow2: int = 6) -> int:
-    """The JAX package's chain group for ``n`` chains: the largest divisor
-    of ``n`` up to ``cap`` whose power of two leaves ``reserve_pow2``
-    powers of ``n``'s free."""
-    v = (n & -n).bit_length() - 1
-    max_v_b = max(0, v - reserve_pow2)
-    for cand in range(min(cap, n), 0, -1):
-        if n % cand == 0 and (cand & -cand).bit_length() - 1 <= max_v_b:
-            return cand
-    return 1
+def group_sums(x: torch.Tensor, b: int) -> torch.Tensor:
+    """The rank-local part of the cross-chain statistics: the sums of
+    each consecutive group of ``b`` chains of ``x`` (chains, D), a fixed
+    tree each, ``(chains / b, D)``."""
+    return tree_sum(x.reshape(-1, b, x.shape[-1]), 1)
 
 
-def _cross_chain_stats(zs: torch.Tensor, accept: torch.Tensor):
-    """``(mean_b, m2_b, accept_mean)`` over the chains of ``zs`` (chains,
-    D) and ``accept`` (chains,): sums over groups of chains, then over
-    the groups."""
-    n = accept.shape[0]
-    b = _chain_block(n)
-    nb = n // b
-    mean_b = zs.reshape(nb, b, -1).sum(1).sum(0) / n
-    accept_mean = accept.reshape(nb, b).sum(1).sum() / n
+def _cross_chain_stats(zs: torch.Tensor, accept: torch.Tensor, mesh=None,
+                       axis_name="chains", block: int = 8):
+    """``(mean_b, m2_b, accept_mean)`` over all chains, from this rank's
+    ``zs`` (chains/D, D) and ``accept`` (chains/D,). Every float sum runs
+    in fixed units: chain groups of a size derived from the GLOBAL chain
+    count alone (``collectives._layout_free_block`` with cap ``block``),
+    each summed by a fixed tree, then the groups' partials, gathered in
+    chain order, by another. So the adapted (eps, mass), and every draw
+    after them, are bitwise equal for ``mesh=None`` and any power-of-two
+    chain-sharded world up to 64 ranks (NUTS turns an ulp of eps into
+    visibly different chains). The only collectives are two all-gathers
+    of group partials, never the (chains, D) positions; with
+    ``mesh=None`` the partials are already whole."""
+    ax = None if mesh is None else mesh_axis(mesh, axis_name)
+    c_loc = accept.shape[0]
+    n_chains = c_loc * (1 if ax is None else ax.size)
+    b = _layout_free_block(n_chains, block)
+    if c_loc % b:
+        raise ValueError(
+            f"cross-chain adaptation: the layout-independent chain "
+            f"group {b} (derived from n_chains={n_chains}) does not "
+            f"divide the per-device chain count chains/D={c_loc}. "
+            f"Use a power-of-two mesh axis (up to 64 devices).")
+
+    def gather(x):
+        return x if ax is None else all_gather(x, ax, "chain_partials")
+
+    first = gather(group_sums(torch.cat([zs, accept[:, None]], 1), b))
+    mean_b = tree_sum(first[:, :-1], 0) / n_chains
+    accept_mean = tree_sum(first[:, -1], 0) / n_chains
     sq = (zs - mean_b[None, :]) ** 2
-    m2_b = sq.reshape(nb, b, -1).sum(1).sum(0)
+    m2_b = tree_sum(gather(group_sums(sq, b)), 0)
     return mean_b, m2_b, accept_mean
+
+
+def _chain_range(n_chains: int, mesh, axis_name) -> tuple[int, int]:
+    """This rank's ``[lo, hi)`` of the chains (all of them without a
+    mesh)."""
+    return (0, n_chains) if mesh is None else rank_range(n_chains, mesh,
+                                                         axis_name)
 
 
 def warmup_chains(
@@ -146,11 +165,16 @@ def warmup_chains(
     (chains, D). Returns ``(z_warm, eps, inv_mass)``. The mass comes
     from the second half of warmup, set once three quarters in, where
     dual averaging restarts under the new metric; eps adapts every step
-    from the chains' mean acceptance."""
-    _no_mesh(mesh)
-    n_chains, d = z0s.shape
+    from the chains' mean acceptance. With ``mesh``, ``z0s`` is this
+    rank's slice of the chains (their keys those of their global
+    indices), ``z_warm`` too, and eps and the mass are replicated:
+    bitwise those of ``mesh=None``."""
+    c_loc, d = z0s.shape
     dev = z0s.device
-    chains = torch.arange(n_chains, device=dev)
+    n_chains = c_loc if mesh is None else (
+        c_loc * mesh_axis(mesh, axis_name).size)
+    lo, hi = _chain_range(n_chains, mesh, axis_name)
+    chains = torch.arange(lo, hi, device=dev)
     keys = random.split(key, num_warmup)
     zs, da = z0s, da_init(eps0, dev)
     wf, inv_mass = welford_init(d, dev), torch.ones(d, device=dev)
@@ -159,7 +183,8 @@ def warmup_chains(
         zs, info = nuts_kernel(logdensity_fn, zs, step_keys,
                                torch.exp(da.log_eps), inv_mass, max_depth,
                                fixed_budget=fixed_budget)
-        mean_b, m2_b, accept = _cross_chain_stats(zs, info.accept_prob)
+        mean_b, m2_b, accept = _cross_chain_stats(zs, info.accept_prob,
+                                                  mesh, axis_name)
         da = da_update(da, accept, target_accept)
         if i >= num_warmup // 2:
             wf = welford_update_moments(wf, mean_b, m2_b, n_chains)
@@ -204,14 +229,19 @@ def run_nuts(
 
     The log-density of a position is the target's joint score, taken by
     ``assess`` of the whole choice map (the JAX package reads the same
-    number from ``importance``, whose keys nothing here consumes)."""
-    _no_mesh(mesh)
+    number from ``importance``, whose keys nothing here consumes).
+
+    With ``mesh``, this rank runs its slice of the ``n_chains`` (each
+    chain on the keys of its global index) and returns its slice of the
+    draws; the warmup's cross-chain statistics are gathered over
+    ``mesh[axis_name]``, so every draw is bitwise that of ``mesh=None``."""
     dev = key.device
     k_init, k_warm, k_sample = random.split(key, 3).unbind(-2)
     transforms = resolve_transforms(target, transforms)
-    chains = torch.arange(n_chains, device=dev)
+    lo, hi = _chain_range(n_chains, mesh, axis_name)
+    chains = torch.arange(lo, hi, device=dev)
     lifted = lift_target(
-        target, n_chains, tree_device((target.args, target.constraint)) or dev)
+        target, hi - lo, tree_device((target.args, target.constraint)) or dev)
     trs, _ = lifted.importance(random.fold_in(k_init.unsqueeze(0), chains),
                                ChoiceMap.empty())
     latents0 = unconstrain_choices(
@@ -219,7 +249,7 @@ def run_nuts(
     vals0, rebuild = partition_values(latents0)
     check_float_latents(vals0)
     z0s, unravel_vals = ravel_pytree(vals0, 1)
-    batch = (n_chains,)
+    batch = (hi - lo,)
 
     def logdensity(z_vec):
         chm_x, fldj = constrain_choices(rebuild(unravel_vals(z_vec)),
@@ -230,7 +260,7 @@ def run_nuts(
 
     z, eps, inv_mass = warmup_chains(
         logdensity, z0s, k_warm, num_warmup, max_depth, target_accept,
-        fixed_budget=fixed_budget)
+        mesh=mesh, axis_name=axis_name, fixed_budget=fixed_budget)
     step_keys = random.split(random.fold_in(k_sample.unsqueeze(0), chains),
                              num_samples)                    # (C, S, 2)
     zs, infos = [], []

@@ -7,8 +7,10 @@ Here the steps are a Python loop and the ESS test is a Python ``if``:
 one host sync per step, the known idle source of this slice. The step
 keys are derived for all steps at once before the loop (the same key
 data as JAX's per-step ``fold_in`` + ``split``), so the loop issues no
-key arithmetic of its own. The sharding hooks of the JAX driver
-(``shard_constraint``, ``stats_fn``, ``resample_fn``) are not ported.
+key arithmetic of its own. The sharding hooks of the JAX driver are
+``stats_fn`` and ``resample_fn`` as there, and ``particle_range`` in place
+of ``shard_constraint``: the rank's slice of the global particle axis
+(``parallel.sharded_particle_filter`` builds all three).
 """
 
 from __future__ import annotations
@@ -46,6 +48,10 @@ def _filter_keys(key, n_steps: int):
     return k_init, k_res, k_prop
 
 
+def _lse(lw: torch.Tensor) -> torch.Tensor:
+    return torch.logsumexp(lw, dim=0)
+
+
 def _lse_ess(lw: torch.Tensor):
     lse = torch.logsumexp(lw, dim=0)
     return lse, torch.exp(2.0 * lse - torch.logsumexp(2.0 * lw, dim=0))
@@ -58,6 +64,9 @@ def particle_filter(
     ess_threshold: float = 0.5,
     resampling: str = "systematic",
     batched: bool = False,
+    particle_range: tuple[int, int] | None = None,
+    stats_fn: Callable | None = None,
+    resample_fn: Callable | None = None,
 ):
     """Generic particle filter.
 
@@ -71,35 +80,60 @@ def particle_filter(
     axis written out where JAX vmaps), and works on the same ensemble.
 
     Returns ``run(key, observations) -> (FilterState, log_z_per_step)``.
+
+    Sharding hooks (the counterparts of the JAX driver's):
+
+    - ``particle_range=(lo, hi)``: this rank runs the particles ``lo <= i
+      < hi`` of the ``n_particles``, on the keys ``fold_in(k, i)`` of
+      their global ``i``, so that it draws exactly what they draw in the
+      unsharded run. Only the per-particle path shards (``batched=True``
+      raises): its draws do not depend on the layout.
+    - ``stats_fn(log_weights) -> (lse, ess)`` and ``resample_fn(key,
+      log_weights, particles) -> particles`` replace the ensemble
+      reductions and the resampling (``parallel.collectives`` gives the
+      collective forms). With ``stats_fn``, the per-step log Z reads its
+      ``lse``. The defaults reproduce the single-device computation.
     """
     log_n = math.log(n_particles)
+    lo, hi = (0, n_particles) if particle_range is None else particle_range
+    if particle_range is not None and batched:
+        raise ValueError(
+            "particle_filter: a particle_range shards the per-particle path "
+            "only; batched=True draws the whole ensemble from one key, "
+            "which no rank's slice can reproduce")
+    if stats_fn is None:
+        stats_fn = _lse_ess
+        lse_fn = _lse
+    else:
+        def lse_fn(lw):
+            return stats_fn(lw)[0]
+    if resample_fn is None:
+        def resample_fn(key, lw, particles):
+            return resample_tree(key, lw, particles, n_particles, resampling)
 
     def per_particle(k):
-        return random.fold_in(k, torch.arange(n_particles, device=k.device))
+        return random.fold_in(k, torch.arange(lo, hi, device=k.device))
 
     def run(key, observations):
         n_steps = tree_leaves(observations)[0].shape[0]
         k_init, k_res, k_prop = _filter_keys(key, n_steps)
         states, log_ws = init(k_init if batched else per_particle(k_init))
         log_ws = torch.as_tensor(log_ws, device=key.device).to(
-            torch.float32).expand(n_particles).clone()
+            torch.float32).expand(hi - lo).clone()
         log_z = torch.zeros((), device=key.device)
         log_zs = []
         for t in range(n_steps):
             obs_t = tree_map(lambda o: o[t], observations)
-            lse, ess = _lse_ess(log_ws)
+            lse, ess = stats_fn(log_ws)
             if bool(ess < ess_threshold * n_particles):
-                states = resample_tree(k_res[t], log_ws, states, n_particles,
-                                       resampling)
+                states = resample_fn(k_res[t], log_ws, states)
                 log_z = log_z + lse - log_n
                 log_ws = torch.zeros_like(log_ws)
             kp = k_prop[t] if batched else per_particle(k_prop[t])
             states, incr = step(kp, states, obs_t)
             log_ws = log_ws + incr
-            log_zs.append(log_z + torch.logsumexp(log_ws, dim=0) - log_n)
-        final = FilterState(
-            states, log_ws, log_z + torch.logsumexp(log_ws, dim=0) - log_n
-        )
+            log_zs.append(log_z + lse_fn(log_ws) - log_n)
+        final = FilterState(states, log_ws, log_z + lse_fn(log_ws) - log_n)
         return final, torch.stack(log_zs)
 
     return run

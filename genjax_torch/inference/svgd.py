@@ -114,27 +114,26 @@ def svgd_step(logdensity_fn: Callable[[torch.Tensor], torch.Tensor],
     return xs + step_size * _rbf_phi(xs, grads)
 
 
-def run_svgd(target: Target, key, n_particles: int = 256,
-             n_steps: int = 500, step_size: float = 0.05,
-             transforms: "dict | str | None" = None,
-             h_rows: int | None = None) -> ChoiceMap:
-    """Fit an SVGD ensemble to ``target``'s posterior. Particles start
-    from the prior (``importance`` on ``fold_in(split(key)[0], i)``);
-    returns a choice map whose latent leaves lead with
-    ``(n_particles,)``. Updates are AdaGrad-normalized, as in the SVGD
-    paper, so ``step_size`` is free of the posterior's scale.
-    ``transforms``: as in ``run_nuts`` (a dict of support bijectors or
-    ``"auto"``); the particles then move in unconstrained space and the
-    choices come back constrained."""
+def svgd_problem(target: Target, key, n_particles: int,
+                 transforms: "dict | str | None" = None,
+                 particle_range: tuple[int, int] | None = None):
+    """The particles ``lo <= i < hi`` of an ``n_particles`` SVGD ensemble
+    on ``target`` (all of them by default), drawn from the prior by
+    ``importance`` on ``fold_in(split(key)[0], i)`` of their global
+    ``i``. Returns ``(xs, logdensity, finish)``: the raveled
+    unconstrained positions ``(hi - lo, D)``, the batched log-density
+    ``(hi - lo, D) -> (hi - lo,)``, and ``finish(xs)``, the constrained
+    choice map of positions."""
+    lo, hi = (0, n_particles) if particle_range is None else particle_range
     transforms = resolve_transforms(target, transforms)
     dev = key.device
     k_init, _ = random.split(key).unbind(-2)
     lifted = lift_target(
-        target, n_particles,
+        target, hi - lo,
         tree_device((target.args, target.constraint)) or dev)
     trs, _ = lifted.importance(
         random.fold_in(k_init.unsqueeze(0),
-                       torch.arange(n_particles, device=dev)),
+                       torch.arange(lo, hi, device=dev)),
         ChoiceMap.empty())
     latents = lifted.filter_to_unconstrained(trs.get_choices())
     _check_continuous_sites(trs, lambda p: not path_present(latents, p))
@@ -147,7 +146,7 @@ def run_svgd(target: Target, key, n_particles: int = 256,
                 f"{torch.as_tensor(leaf).dtype}; discrete sites cannot "
                 "ride the SVGD position vector")
     xs, unravel = ravel_pytree(vals0, 1)
-    batch = (n_particles,)
+    batch = (hi - lo,)
 
     def logdensity(z):
         chm_x, fldj = constrain_choices(rebuild(unravel(z)), transforms, 1)
@@ -155,6 +154,26 @@ def run_svgd(target: Target, key, n_particles: int = 256,
                                    batch=batch)
         return score + fldj
 
+    def finish(z):
+        return constrain_choices(rebuild(unravel(z)), transforms, 1)[0]
+
+    return xs, logdensity, finish
+
+
+def run_svgd(target: Target, key, n_particles: int = 256,
+             n_steps: int = 500, step_size: float = 0.05,
+             transforms: "dict | str | None" = None,
+             h_rows: int | None = None) -> ChoiceMap:
+    """Fit an SVGD ensemble to ``target``'s posterior. Particles start
+    from the prior (``importance`` on ``fold_in(split(key)[0], i)``);
+    returns a choice map whose latent leaves lead with
+    ``(n_particles,)``. Updates are AdaGrad-normalized, as in the SVGD
+    paper, so ``step_size`` is free of the posterior's scale.
+    ``transforms``: as in ``run_nuts`` (a dict of support bijectors or
+    ``"auto"``); the particles then move in unconstrained space and the
+    choices come back constrained."""
+    xs, logdensity, finish = svgd_problem(target, key, n_particles,
+                                          transforms)
     score_grad = value_and_grad(logdensity)
     acc = torch.zeros_like(xs)
     for _ in range(n_steps):
@@ -162,5 +181,4 @@ def run_svgd(target: Target, key, n_particles: int = 256,
         phi = _rbf_phi(xs, grads, h_rows)
         acc = 0.9 * acc + 0.1 * phi * phi
         xs = xs + step_size * phi / (1e-6 + torch.sqrt(acc))
-    chm, _ = constrain_choices(rebuild(unravel(xs)), transforms, 1)
-    return chm
+    return finish(xs)

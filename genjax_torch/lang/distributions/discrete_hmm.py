@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from genjax_torch.core import random
+from genjax_torch.core.fixed_sum import prefix_sum, tree_logsumexp
 from genjax_torch.core.pytree import Pytree
 from genjax_torch.core.scan import associative_scan
 from genjax_torch.lang.distributions.distribution import Distribution
@@ -96,19 +97,53 @@ def _obs_ll(config: DiscreteHMMConfiguration, observations) -> torch.Tensor:
     return config.observation_logits[:, obs].T.contiguous()
 
 
+def filter_recursion(u: torch.Tensor, trans: torch.Tensor,
+                     obs_rows: torch.Tensor):
+    """The forward recursion ``y_t = logsumexp_k(u_{t-1}[k] + trans[k, :])
+    + obs_t`` in scaled form: each step's state is kept as ``u_t = y_t -
+    m_t`` (max 0) and its shift ``m_t = max y_t``. ``u``: ``(..., S)``
+    with max 0; ``obs_rows``: ``(n, ..., S)``. Returns ``(us, ms)``,
+    ``(n, ..., S)`` and ``(n, ...)``. The log joint is the running sum of
+    the shifts plus ``u``; kept apart, no step adds a small number to a
+    large one, so f32 rounding does not drift with the length of the
+    chain. Every logsumexp is a fixed tree (``core/fixed_sum.py``)."""
+    us, ms = [], []
+    for row in obs_rows:
+        y = tree_logsumexp(u[..., :, None] + trans, -2) + row
+        m = y.amax(-1, keepdim=True)
+        u = y - m
+        us.append(u)
+        ms.append(m[..., 0])
+    if not us:
+        return u.new_empty((0,) + u.shape), u.new_empty((0,) + u.shape[:-1])
+    return torch.stack(us), torch.stack(ms)
+
+
+def unscale(offsets: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
+    """``alphas = offsets + us`` added in float64 and rounded once to
+    ``us``'s dtype (``offsets``: float64, ``us``'s shape but the last
+    axis)."""
+    return (offsets[..., None] + us.double()).to(us.dtype)
+
+
 def forward_filter(config: DiscreteHMMConfiguration, observations
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sequential forward filtering. Returns ``(alphas, log_marginal)``
-    where ``alphas[t, s] = log P(z_t = s, x_{1:t})``."""
+    where ``alphas[t, s] = log P(z_t = s, x_{1:t})``. The recursion runs
+    scaled (:func:`filter_recursion`): the shifts are summed in float64
+    by a fixed-association prefix sum and each alpha is rounded once, so
+    the log marginal of a long chain stays within f32 rounding of the
+    exact one. ``parallel.time_sharded_filter`` runs the same steps, and
+    at one rank and one block gives these bits."""
     obs_ll = _obs_ll(config, observations)
-    alpha = config.prior_logits + obs_ll[0]
-    alphas = [alpha]
-    for obs_t in obs_ll[1:]:
-        alpha = torch.logsumexp(alpha[:, None] + config.transition_logits,
-                                dim=0) + obs_t
-        alphas.append(alpha)
-    alphas = torch.stack(alphas)
-    return alphas, torch.logsumexp(alphas[-1], dim=0)
+    alpha0 = config.prior_logits + obs_ll[0]
+    m0 = alpha0.amax(-1)
+    us, ms = filter_recursion(alpha0 - m0, config.transition_logits,
+                              obs_ll[1:])
+    us = torch.cat([(alpha0 - m0)[None], us])
+    offsets = prefix_sum(torch.cat([m0[None], ms]).double())
+    return unscale(offsets, us), unscale(offsets[-1],
+                                         tree_logsumexp(us[-1], 0)[None])[0]
 
 
 def forward_filter_parallel(config: DiscreteHMMConfiguration, observations

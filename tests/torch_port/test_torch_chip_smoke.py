@@ -4,7 +4,12 @@ A profile on the card now and then holds no device event at all;
 ``profiled`` then takes it again and, if no try saw the device, falls
 back to the calls' CUDA-event time with the device ops NaN, which the
 JSON record prints as ``null``. Here no try can see a device, so the
-fallback path runs, with ``cuda_ms`` and the synchronisation stubbed."""
+fallback path runs, with ``cuda_ms`` and the synchronisation stubbed.
+
+Phase 28's CPU-side helpers: the rank slices of its local-layout check
+(``layout_slices``, ``layout_mismatches``, which must catch a rank-local
+part whose bits depend on the slice), and the float64 offspring counts
+with their tie count against f32 counts."""
 
 import json
 import math
@@ -139,3 +144,51 @@ def test_phi_oracle_matches_the_port():
     rel = float((_rbf_phi(xs, gr).double() - oracle).abs().max()
                 / oracle.abs().max())
     assert rel <= chip_smoke.C10_PHI_REL_BOUND
+
+
+def test_layout_slices_cover_the_axis_in_rank_order():
+    for d in (1, 2, 4, 8):
+        sl = chip_smoke.layout_slices(64, d)
+        assert len(sl) == d
+        assert [i for s in sl for i in range(64)[s]] == list(range(64))
+
+
+def test_layout_mismatches_pass_a_rowwise_part_and_catch_a_global_one():
+    x = torch.randn(64, 3)
+    rowwise = chip_smoke.layout_mismatches(lambda v: (v * 2.0, v.sum(1)), x)
+    assert rowwise == {2: 0, 4: 0, 8: 0}
+    # A part that reads its whole slice (here: its sum) is not its rows
+    # of the one-rank result on any rank.
+    whole = chip_smoke.layout_mismatches(
+        lambda v: (v - v.sum(0, keepdim=True),), x)
+    assert whole == {2: 2, 4: 4, 8: 8}
+
+
+def test_layout_mismatches_of_the_block_partials():
+    from genjax_torch.parallel import collectives as PC
+
+    lw = 3.0 * torch.randn(1 << 12)
+    m = lw.max()
+    bad = chip_smoke.layout_mismatches(
+        lambda v: (lambda w, s: (w, s.T))(*PC.block_partials(v, m, 64)), lw)
+    assert bad == {2: 0, 4: 0, 8: 0}
+
+
+def test_float64_counts_and_their_ties():
+    from genjax_torch.core import random
+    from genjax_torch.inference.smc import systematic_offspring_cumulative
+
+    n = 1 << 14
+    lw = 2.0 * random.normal(random.key(3), (n,))
+    key = random.key(4)
+    cc64 = chip_smoke.float64_counts(key, lw, n)
+    assert int(cc64[-1]) == n and bool((torch.diff(cc64) >= 0).all())
+    # The same draw in f32 (the plain CDF pipeline) lands on the float64
+    # counts but at grid points between the two sums, each one off.
+    cc = systematic_offspring_cumulative(key, lw, n)
+    ties, largest = chip_smoke.count_ties(cc, cc64)
+    assert ties <= n // 100 and largest <= 1
+    assert chip_smoke.count_ties(cc64, cc64) == (0, 0)
+    shifted = cc64.clone()
+    shifted[5] += 2
+    assert chip_smoke.count_ties(shifted, cc64) == (1, 2)

@@ -150,7 +150,9 @@ def test_warmup_chains_matches_jax():
     np.testing.assert_allclose(mt.numpy(), np.asarray(mj), rtol=1e-4)
     np.testing.assert_allclose(zt.numpy(), np.asarray(zj), rtol=1e-4,
                                atol=1e-4)
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # mesh= runs the chain-sharded path (test_torch_sharded_mcmc.py); it
+    # takes a torch DeviceMesh and refuses anything else.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ta.warmup_chains(_gauss_t, torch.tensor(z0), _tkey(key),
                          num_warmup=2, mesh=object())
 

@@ -6,6 +6,11 @@ MAP / Laplace come (``chip_smoke.py`` phases 24-27):
   1024 x 64 Bayesian linear regression) on each key: max |ensemble mean
   − exact posterior mean|, the exact mean from a float64 solve. About
   4.5 TFLOP, a few minutes a key;
+- ``--sharded-svgd-keys``: the same fit through the JAX package's
+  ``parallel.run_sharded_svgd`` (its bandwidth from the strided
+  subsample by explicit differences) on a one-device mesh, from
+  ``run_svgd``'s prior draws: the spread of the sharded fit that phase
+  28g holds the port's to;
 - ``--map``: the JAX package's ``map_optimize(include_jacobian=True)``
   (Adam 1e-2, ``--map-steps`` steps) and ``laplace_approximation`` on the
   same regression: the MAP, covariance and log Z against the float64
@@ -82,6 +87,42 @@ def svgd_reading(key: int, parts: int, steps: int):
         h_rows=256)["w"], axis=0))(jax.random.key(key))
     err = float(np.max(np.abs(np.asarray(ens, np.float64) - exact["mean"])))
     _emit({"reading": "svgd_jax", "key": key, "particles": parts,
+           "steps": steps, "post_mean_err": err,
+           "seconds": time.perf_counter() - t0})
+
+
+def sharded_svgd_reading(key: int, parts: int, steps: int):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from genjax_tpu.gfi.choice_map import ChoiceMap
+    from genjax_tpu.parallel.svgd import run_sharded_svgd
+
+    target, exact = _blr_jax()
+    (x,) = target.args
+    y = target.constraint["y"]
+    mesh = Mesh(np.asarray(jax.devices()[:1]), ("particles",))
+
+    def logp(w):
+        # The joint's log density up to a constant (the gradient SVGD
+        # reads): w ~ N(0, I), y ~ N(x w, 0.25^2).
+        return -0.5 * jnp.sum(w * w) - 0.5 * jnp.sum(
+            (y - x @ w) ** 2) / 0.0625
+
+    def fit(k):
+        k_init, _ = jax.random.split(k)
+        keys = jax.vmap(lambda c: jax.random.fold_in(k_init, c))(
+            jnp.arange(parts))
+        w0 = jax.vmap(lambda kk: target.importance(
+            kk, ChoiceMap.empty())[0].get_choices()["w"])(keys)
+        ens = run_sharded_svgd(logp, w0, steps, 0.05, mesh, h_rows=256)
+        return jnp.mean(ens, axis=0)
+
+    t0 = time.perf_counter()
+    ens = jax.jit(fit)(jax.random.key(key))
+    err = float(np.max(np.abs(np.asarray(ens, np.float64) - exact["mean"])))
+    _emit({"reading": "sharded_svgd_jax", "key": key, "particles": parts,
            "steps": steps, "post_mean_err": err,
            "seconds": time.perf_counter() - t0})
 
@@ -193,6 +234,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--svgd-keys", default="")
     ap.add_argument("--svgd-size", default="4096,600")
+    ap.add_argument("--sharded-svgd-keys", default="")
     ap.add_argument("--map", action="store_true")
     ap.add_argument("--map-steps", type=int, default=1000)
     ap.add_argument("--config5", action="store_true")
@@ -208,6 +250,8 @@ def main():
     parts, steps = (int(v) for v in args.svgd_size.split(","))
     for k in filter(None, args.svgd_keys.split(",")):
         svgd_reading(int(k), parts, steps)
+    for k in filter(None, args.sharded_svgd_keys.split(",")):
+        sharded_svgd_reading(int(k), parts, steps)
 
 
 if __name__ == "__main__":
