@@ -140,6 +140,20 @@ Phases (each prints one line; any failure exits non-zero):
      Each part prints its wall (median of 3), rate, collectives a step
      with their bytes, host syncs, device-busy time, idle share, device
      ops and peak memory.
+ 29. the distribution library: (a) each of the 48 distributions draws
+     2^20 values from a key batch, held to its law (the empirical CDF at
+     the JAX tests' values within 5 binomial standard errors of float64
+     scipy, or the mean vector within 5 se of its closed form) and its
+     declared support, its log-density on the card to the CPU port's
+     (1e-5 relative, 1e-4 through a special function or a series), and
+     poisson / binomial / multinomial integers to the CPU port's on
+     2^16 keys, with draws/s of sample and logpdf and the rejection
+     loops' trips and host syncs; (b) the gamma-Poisson SIR at 2^20
+     (build_gamma_poisson_sir) within 0.01 of the posterior mean 3.5 and
+     0.006 of log(6/128), its one resample one CDF launch; (c) NUTS on
+     config 2's regression with sigma ~ half_normal(1) (build_scale_nuts,
+     2048 chains, 200 + 200, transforms="auto"): split R-hat <= 1.01 and
+     each mean within 4 MCSE of scale_nuts_exact.
 Phases 24-27 each print the wall of a run (the median of 3), its rate,
 a profiled short run's device-busy time, idle share and device ops a
 step, and the peak device memory; none launches one of the four kernels,
@@ -2351,6 +2365,447 @@ def distributed_phase(dev, card: str, zero_counts, counts) -> dict:
     return out
 
 
+# -- 29. the distribution library ---------------------------------------
+
+#: Phase 29a's table, copied from the JAX package's tests (this script
+#: imports nothing of it): name -> (parameters, test values, in the JAX
+#: tests' CASES table). The 33 CASES rows are
+#: tests/lang/test_distributions.py:27-72; bernoulli, flip, categorical,
+#: dirichlet and the two multivariate normals :122-175; multinomial,
+#: dirichlet_multinomial and beta_binomial :177-198; beta_quotient,
+#: lambert_w_normal, power_spherical and von_mises_fisher
+#: tests/lang/test_distributions_tail.py; half_student_t and
+#: logit_normal, which no JAX test draws, take the parameters of its
+#: support-metadata table (tests/lang/test_distributions.py:218-235).
+#: A distribution outside CASES has its log-density compared at its
+#: first 16 draws.
+DIST_TABLE = {
+    "normal": ((0.5, 2.0), [0.0, 1.0, -3.0], True),
+    "cauchy": ((0.0, 1.5), [0.0, 2.0], True),
+    "laplace": ((1.0, 2.0), [0.0, 3.0], True),
+    "logistic": ((0.0, 1.0), [0.0, 1.0], True),
+    "gumbel": ((0.5, 1.2), [0.0, 2.0], True),
+    "student_t": ((4.0, 0.0, 1.0), [0.0, 1.5], True),
+    "uniform": ((1.0, 3.0), [1.5, 2.5], True),
+    "exponential": ((2.0,), [0.5, 2.0], True),
+    "beta": ((2.0, 3.0), [0.3, 0.7], True),
+    "gamma": ((2.0, 3.0), [0.5, 1.5], True),
+    "inverse_gamma": ((3.0, 2.0), [0.5, 1.5], True),
+    "chi2": ((3.0,), [1.0, 4.0], True),
+    "chi": ((3.0,), [1.0, 2.0], True),
+    "weibull": ((2.0, 1.5), [0.5, 2.0], True),
+    "log_normal": ((0.0, 1.0), [0.5, 2.0], True),
+    "half_normal": ((2.0,), [0.5, 3.0], True),
+    "half_cauchy": ((0.0, 1.0), [0.5, 3.0], True),
+    "truncated_normal": ((0.0, 1.0, -1.0, 2.0), [0.0, 1.0], True),
+    "von_mises": ((0.0, 2.0), [0.0, 1.0], True),
+    "inverse_gaussian": ((1.0, 2.0), [0.5, 1.5], True),
+    "moyal": ((0.0, 1.0), [0.0, 2.0], True),
+    "poisson": ((3.5,), [0, 2, 5], True),
+    "geometric": ((0.3,), [0, 1, 5], True),
+    "binomial": ((10.0, 0.4), [0, 4, 10], True),
+    "negative_binomial": ((5.0, 0.4), [0, 3, 8], True),
+    "skellam": ((2.0, 3.0), [-2, 0, 3], True),
+    "zipf": ((2.5,), [1, 2, 5], True),
+    "kumaraswamy": ((2.0, 3.0), [0.3, 0.6], True),
+    "exp_gamma": ((2.0, 1.0), [-0.5, 0.5], True),
+    "exp_inverse_gamma": ((2.0, 1.0), [-0.5, 0.5], True),
+    "non_central_chi2": ((3.0, 2.0), [2.0, 5.0], True),
+    "double_sided_maxwell": ((0.0, 1.0), [1.0, -1.5], True),
+    "truncated_cauchy": ((0.0, 1.0, -2.0, 2.0), [0.0, 1.0], True),
+    "bernoulli": ((math.log(0.3 / 0.7),), [0, 1], False),
+    "flip": ((0.3,), [0, 1], False),
+    "categorical": (([math.log(0.1), math.log(0.2), math.log(0.7)],),
+                    [0, 1, 2], False),
+    "dirichlet": (([2.0, 3.0, 4.0],), None, False),
+    "mv_normal_diag": (([0.0, 1.0], [1.0, 2.0]), None, False),
+    "mv_normal": (([0.0, 1.0], [[2.0, 0.5], [0.5, 1.0]]), None, False),
+    "multinomial": ((10.0, [math.log(0.2), math.log(0.3), math.log(0.5)]),
+                    None, False),
+    "dirichlet_multinomial": ((10.0, [1.0, 2.0, 3.0]), None, False),
+    "beta_binomial": ((10.0, 2.0, 3.0), [0, 4, 10], False),
+    "beta_quotient": ((2.0, 3.0, 4.0, 3.0), None, False),
+    "lambert_w_normal": ((0.0, 1.0, 0.3), [-1.0, 0.0, 1.5], False),
+    "power_spherical": (([0.0, 0.0, 1.0], 10.0), None, False),
+    "von_mises_fisher": (([0.0, 1.0, 0.0], 5.0), None, False),
+    "half_student_t": ((3.0, 0.0, 1.0), [0.5, 2.0], False),
+    "logit_normal": ((0.0, 1.0), [0.3, 0.7], False),
+}
+#: The log-densities that go through a special function or a series
+#: (1e-4 relative card vs CPU; the rest 1e-5).
+DIST_SPECIAL = {"non_central_chi2", "von_mises", "von_mises_fisher",
+                "lambert_w_normal", "zipf", "beta_quotient"}
+#: Draws per distribution on the card, keys for the integer samplers'
+#: card-vs-CPU comparison, and the share of them that must agree.
+DIST_DRAWS, DIST_INT_KEYS, DIST_INT_AGREE = 1 << 20, 1 << 16, 0.999
+#: Phase 29b and 29c: the gamma-Poisson SIR and the scale-free NUTS.
+GP_SIZE, GP_MEAN_BOUND, GP_LOGZ_BOUND = 1 << 20, 0.01, 0.006
+SCALE_NUTS_SIZE = (2048, 200, 200, 6)
+
+
+def _dist_cdf(name: str):
+    """The float64 CDF of a univariate row of :data:`DIST_TABLE` (scipy
+    or a closed form), or None for a vector-valued one."""
+    import numpy as np
+    import scipy.special as ssp
+    import scipy.stats as sps
+
+    frozen = {
+        "normal": sps.norm(0.5, 2.0), "cauchy": sps.cauchy(0.0, 1.5),
+        "laplace": sps.laplace(1.0, 2.0), "logistic": sps.logistic(0.0, 1.0),
+        "gumbel": sps.gumbel_r(0.5, 1.2), "student_t": sps.t(4.0),
+        "uniform": sps.uniform(1.0, 2.0), "exponential": sps.expon(scale=0.5),
+        "beta": sps.beta(2.0, 3.0), "gamma": sps.gamma(2.0, scale=1 / 3.0),
+        "inverse_gamma": sps.invgamma(3.0, scale=2.0), "chi2": sps.chi2(3.0),
+        "chi": sps.chi(3.0), "weibull": sps.weibull_min(2.0, scale=1.5),
+        "log_normal": sps.lognorm(1.0), "half_normal": sps.halfnorm(scale=2.0),
+        "half_cauchy": sps.halfcauchy(0.0, 1.0),
+        "truncated_normal": sps.truncnorm(-1.0, 2.0),
+        "von_mises": sps.vonmises(2.0),
+        "inverse_gaussian": sps.invgauss(0.5, scale=2.0), "moyal": sps.moyal(),
+        "poisson": sps.poisson(3.5), "geometric": sps.geom(0.3, loc=-1),
+        "binomial": sps.binom(10, 0.4), "negative_binomial": sps.nbinom(5, 0.6),
+        "skellam": sps.skellam(2.0, 3.0), "zipf": sps.zipf(2.5),
+        "non_central_chi2": sps.ncx2(3.0, 2.0),
+        "beta_binomial": sps.betabinom(10, 2.0, 3.0),
+    }
+    if name in frozen:
+        return frozen[name].cdf
+    closed = {
+        "kumaraswamy": lambda v: 1 - (1 - v ** 2) ** 3,
+        "exp_gamma": lambda v: sps.gamma(2.0).cdf(np.exp(v)),
+        "exp_inverse_gamma": lambda v: sps.gamma(2.0).sf(np.exp(-v)),
+        "double_sided_maxwell": lambda v: 0.5 + 0.5 * np.sign(v)
+        * sps.maxwell.cdf(abs(v)),
+        "truncated_cauchy": lambda v: (np.arctan(v) + np.arctan(2.0))
+        / (2 * np.arctan(2.0)),
+        "bernoulli": lambda v: 0.7 if v < 1 else 1.0,
+        "flip": lambda v: 0.7 if v < 1 else 1.0,
+        "categorical": lambda v: [0.1, 0.3, 1.0][int(v)],
+        "half_student_t": lambda v: 2 * sps.t(3.0).cdf(v) - 1,
+        "logit_normal": lambda v: sps.norm.cdf(np.log(v / (1 - v))),
+        "lambert_w_normal": lambda v: sps.norm.cdf(np.sign(v) * np.sqrt(
+            np.real(ssp.lambertw(0.3 * v * v)) / 0.3)),
+    }
+    return closed.get(name)
+
+
+def _dist_mean(name: str):
+    """``(mean vector, its per-draw sd)`` of a vector-valued row of
+    :data:`DIST_TABLE` (and of beta_quotient), in closed form."""
+    import numpy as np
+
+    if name == "dirichlet":
+        a = np.array([2.0, 3.0, 4.0])
+        m = a / a.sum()
+        return m, np.sqrt(m * (1 - m) / (a.sum() + 1))
+    if name == "mv_normal_diag":
+        return np.array([0.0, 1.0]), np.array([1.0, 2.0])
+    if name == "mv_normal":
+        return np.array([0.0, 1.0]), np.sqrt([2.0, 1.0])
+    if name == "multinomial":
+        p = np.array([0.2, 0.3, 0.5])
+        return 10 * p, np.sqrt(10 * p * (1 - p))
+    if name == "dirichlet_multinomial":
+        a = np.array([1.0, 2.0, 3.0])
+        p, a0 = a / a.sum(), a.sum()
+        return 10 * p, np.sqrt(10 * p * (1 - p) * (10 + a0) / (1 + a0))
+    if name == "beta_quotient":
+        # E[X] E[1/Y] with X ~ Beta(2, 3), Y ~ Beta(4, 3): 0.4 * 2, and
+        # E[X²] E[1/Y²] = 0.2 * 5.
+        return np.array([0.8]), np.array([math.sqrt(1.0 - 0.64)])
+    if name in ("power_spherical", "von_mises_fisher"):
+        # The mean direction times E[mu.x]; the sd is not closed, so the
+        # draws' own is used (None).
+        mu, conc = DIST_TABLE[name][0]
+        et = (2 * (1.0 + conc) / (2.0 + conc) - 1 if name == "power_spherical"
+              else 1 / math.tanh(conc) - 1 / conc)
+        return et * np.asarray(mu), None
+    return None
+
+
+def _dist_args(args, device, n=None):
+    """A row's parameters on ``device``: numbers stay numbers, lists
+    become f32 tensors, lifted (zero strides) to ``n`` keys if given."""
+    import torch
+
+    out = []
+    for a in args:
+        if isinstance(a, list):
+            t = torch.tensor(a, dtype=torch.float32, device=device)
+            out.append(t.expand((n,) + tuple(t.shape)) if n else t)
+        else:
+            out.append(a)
+    return out
+
+
+def _rel_err(a, b) -> float:
+    """Largest ``|a - b| / max(1, |b|)`` where b is finite (float64);
+    inf if the two disagree on which entries are finite."""
+    import torch
+
+    a, b = a.double().cpu(), b.double().cpu()
+    fin = torch.isfinite(b)
+    if not torch.equal(torch.isfinite(a), fin) or not torch.equal(
+            torch.isneginf(a), torch.isneginf(b)):
+        return math.inf
+    if not bool(fin.any()):
+        return 0.0
+    return float(((a - b).abs() / b.abs().clamp(min=1.0))[fin].max())
+
+
+def _sync_wall(fn) -> tuple:
+    """``(result, wall seconds)`` of one synchronized call."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def distributions_phase(dev, card: str, zero_counts, counts) -> dict:
+    """Phase 29: the distribution library on the card (29a), the
+    gamma-Poisson SIR at K = 2^20 (29b) and NUTS on the scale-free
+    regression at 2048 x (200 + 200) (29c)."""
+    import numpy as np
+    import torch
+
+    import genjax_torch as g
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+    from genjax_torch.inference import ess_autocorr, split_rhat
+    from genjax_torch.inference.requests import nuts as N
+    from genjax_torch.inference.transforms import resolve_transforms
+
+    # -- 29a: every distribution ----------------------------------------
+    t_phase = time.perf_counter()
+    n = DIST_DRAWS
+    keys = random.split(random.key(29, device=dev), n)
+    ikeys = random.split(random.key(30), DIST_INT_KEYS)
+    rows, zero_counts_before = {}, counts()
+    for name, (args, values, in_cases) in DIST_TABLE.items():
+        row_t0 = time.perf_counter()
+        d = getattr(g, name)
+        args_dev = _dist_args(args, dev, n)
+        x = d.sample(keys, *args_dev)
+        random.loops.reset()
+        x, t_sample = _sync_wall(lambda: d.sample(keys, *args_dev))
+        trips, syncs = random.loops.trips, random.loops.host_syncs
+        check(x.device == torch.device(dev) and x.shape[0] == n,
+              f"29a {name}: draws of shape {tuple(x.shape)} on {x.device}")
+        xf = x.double()
+        # Moyal's inverse CDF is -inf at u = 0 (erfinv(1) = inf), one
+        # draw in 2^23, as the JAX package's at the same key: a draw that
+        # is not finite must sit at such a uniform.
+        bad = ~torch.isfinite(xf)
+        if name == "moyal":
+            bad = bad & (random.uniform(keys, ()) != 0)
+        n_inf = int((~torch.isfinite(xf)).sum())
+        check(not bool(bad.any()), f"29a {name}: a draw not finite")
+        # The support's closure: f32 rounding puts a draw on the edge now
+        # and then, where the JAX package's sampler puts it at the same
+        # key (exponential's -log1p(-u) is 0 at u = 0, one draw in 2^23);
+        # such draws are counted and printed.
+        spec = d.get_support(*args)
+        edge = 0
+        if spec == "positive":
+            inside = bool((xf >= 0).all())
+            edge = int((xf == 0).sum())
+        elif spec == "unit_interval":
+            inside = bool(((xf >= 0) & (xf <= 1)).all())
+            edge = int(((xf == 0) | (xf == 1)).sum())
+        elif spec == "simplex":
+            inside = bool((xf >= 0).all()) and float(
+                (xf.sum(-1) - 1).abs().max()) <= 1e-5
+        elif isinstance(spec, tuple):
+            inside = bool(((xf >= spec[0]) & (xf <= spec[1])).all())
+            edge = int(((xf == spec[0]) | (xf == spec[1])).sum())
+        else:
+            inside = True
+        if name in ("power_spherical", "von_mises_fisher"):
+            inside = float((xf.norm(dim=-1) - 1).abs().max()) <= 1e-5
+        check(inside, f"29a {name}: a draw outside its support {spec}")
+        # The law: the empirical CDF at the test values (5 binomial se)
+        # or the mean vector (5 se).
+        cdf = _dist_cdf(name)
+        worst = 0.0
+        if cdf is not None and x.ndim == 1:
+            for v in (values if values is not None else []):
+                f = float(cdf(float(v)))
+                emp = float((xf <= v).double().mean())
+                se = math.sqrt(f * (1 - f) / n)
+                z = abs(emp - f) / se if se > 0 else (0.0 if emp == f
+                                                      else math.inf)
+                worst = max(worst, z)
+                check(abs(emp - f) <= 5 * se,
+                      f"29a {name}: empirical CDF at {v} {emp} vs {f} "
+                      f"(5 se = {5 * se:.3g})")
+        else:
+            mean, sd = _dist_mean(name)
+            got = xf.reshape(n, -1).mean(0).cpu().numpy()
+            sd = sd if sd is not None else xf.reshape(n, -1).std(
+                0).cpu().numpy()
+            z = np.abs(got - mean) / (np.asarray(sd) / math.sqrt(n))
+            worst = float(z.max())
+            check(worst <= 5, f"29a {name}: mean {got} vs {mean} ({worst:.2f}"
+                  " se)")
+        # The card's log-density against the CPU port's at the CASES
+        # values, else at the first 16 draws.
+        vals = (torch.tensor(values, dtype=torch.float32) if in_cases
+                else x[:16].cpu())
+        lp_dev = d.logpdf(vals.to(dev), *_dist_args(args, dev))
+        lp_cpu = d.logpdf(vals, *_dist_args(args, "cpu"))
+        lp_err = _rel_err(lp_dev, lp_cpu)
+        tol = 1e-4 if name in DIST_SPECIAL else 1e-5
+        check(lp_err <= tol, f"29a {name}: card log-density vs CPU "
+              f"{lp_err:.3g} (bound {tol})")
+        _, t_lp = _sync_wall(lambda: d.logpdf(x, *args_dev))
+        _, t_lp = _sync_wall(lambda: d.logpdf(x, *args_dev))
+        row = {"args": [a if not isinstance(a, list) else list(a)
+                        for a in args],
+               "values_from": "CASES" if in_cases else "first 16 draws",
+               "dtype": str(x.dtype).replace("torch.", ""),
+               "sample_draws_per_s": n / t_sample,
+               "logpdf_per_s": n / t_lp, "sample_ms": t_sample * 1e3,
+               "logpdf_ms": t_lp * 1e3, "loop_trips": trips,
+               "host_syncs_per_draw": syncs / n, "host_syncs": syncs,
+               "draws_on_support_edge": edge, "draws_not_finite": n_inf,
+               "logpdf_card_vs_cpu": lp_err, "worst_se": worst}
+        if name in ("poisson", "binomial", "multinomial"):
+            a_cpu = _dist_args(args, "cpu", DIST_INT_KEYS)
+            a_dev = _dist_args(args, dev, DIST_INT_KEYS)
+            on_cpu = d.sample(ikeys, *a_cpu)
+            on_dev = d.sample(ikeys.to(dev), *a_dev).cpu()
+            same = (on_cpu == on_dev)
+            same = same.reshape(DIST_INT_KEYS, -1).all(-1)
+            agree = float(same.double().mean())
+            row["card_vs_cpu_integers_agree"] = agree
+            check(agree >= DIST_INT_AGREE, f"29a {name}: card and CPU "
+                  f"integers agree on {agree} of {DIST_INT_KEYS} keys")
+        row["row_s"] = time.perf_counter() - row_t0
+        rows[name] = row
+        print(f"[29a {name}] {card}: {row['row_s']:.2f} s for the row; "
+              f"{row['dtype']} draws, sample "
+              f"{row['sample_draws_per_s']:.6g} draws/s ({t_sample * 1e3:.3f} "
+              f"ms for 2^20, {trips} loop trips, {syncs} host syncs, "
+              f"{syncs / n:.3g} a draw), logpdf {row['logpdf_per_s']:.6g}/s; "
+              f"{edge} on the support's edge, {n_inf} not finite; law "
+              f"within {worst:.2f} se; "
+              f"log-density card vs CPU "
+              f"{lp_err:.3g} at {row['values_from']}"
+              + (f"; integers card = CPU on "
+                 f"{row['card_vs_cpu_integers_agree']:.6f} of 2^16 keys"
+                 if "card_vs_cpu_integers_agree" in row else ""), flush=True)
+    check(counts() == zero_counts_before,
+          f"29a launched a kernel: {counts()} after {zero_counts_before}")
+    t_29a = time.perf_counter() - t_phase
+    print(f"[29a] {card}: 48 distributions in {t_29a:.1f} s", flush=True)
+
+    # -- 29b: the gamma-Poisson SIR at 2^20 -------------------------------
+    run = E.build_gamma_poisson_sir(GP_SIZE, device=dev)
+    zero_counts()
+    out, first = _sync_wall(lambda: run(random.key(1, device=dev)))
+    gp_launches = counts()
+    check(gp_launches["cdf_counts"] == 1 and sum(gp_launches.values()) == 1,
+          f"29b: launches {gp_launches}, want one cdf_counts")
+    mean, log_z = float(out["mean"]), float(out["log_z"])
+    res = out["resampled"].get_particles().get_choices()["lam"]
+    check(tuple(res.shape) == (GP_SIZE,) and bool((res > 0).all()),
+          "29b: the resampled particles")
+    check(abs(mean - E.GAMMA_POISSON_MEAN) <= GP_MEAN_BOUND,
+          f"29b: posterior mean {mean} vs {E.GAMMA_POISSON_MEAN}")
+    check(abs(log_z - E.GAMMA_POISSON_LOG_Z) <= GP_LOGZ_BOUND,
+          f"29b: log Z {log_z} vs {E.GAMMA_POISSON_LOG_Z}")
+    del out, res
+    walls, wall = _median_wall(first, lambda i: run(random.key(2 + i,
+                                                               device=dev)))
+    p_wall, busy, per_kernel, ops, _ = profiled(
+        lambda: run(random.key(9, device=dev)), 1)
+    sir = {"particles": GP_SIZE, "mean": mean,
+           "exact_mean": E.GAMMA_POISSON_MEAN, "log_z": log_z,
+           "exact_log_z": E.GAMMA_POISSON_LOG_Z, "launches": gp_launches,
+           "wall_ms": [w * 1e3 for w in walls], "median_wall_ms": wall * 1e3,
+           "particles_per_s": GP_SIZE / wall, "profiled_wall_ms": p_wall,
+           "device_busy_ms": busy, "idle_share": 1.0 - busy / p_wall,
+           "device_ops": ops}
+    print(f"[29b gamma-poisson SIR] {card}: K = 2^20: posterior mean "
+          f"{mean:.6f} vs 3.5 (bound {GP_MEAN_BOUND}), log Z {log_z:.6f} vs "
+          f"{E.GAMMA_POISSON_LOG_Z:.6f} (bound {GP_LOGZ_BOUND}); launches "
+          f"{gp_launches}; wall {[round(w * 1e3, 3) for w in walls]} ms "
+          f"(median {wall * 1e3:.3f} ms, {GP_SIZE / wall:.6g} particles/s); "
+          f"profiled run {p_wall:.3f} ms, device busy {busy:.3f} ms, idle "
+          f"share {sir['idle_share']:.4f}, {ops:.0f} device ops; "
+          f"{top(per_kernel, 4)}", flush=True)
+
+    # -- 29c: NUTS with the noise scale free ------------------------------
+    n_chains, num_warmup, num_samples, depth = SCALE_NUTS_SIZE
+    run, target = E.build_scale_nuts(n_chains, num_warmup, num_samples, depth,
+                                     device=dev)
+    transforms = resolve_transforms(target, "auto")
+    check(transforms == {"sigma": "positive"},
+          f"29c: infer_transforms gave {transforms}")
+    exact = E.scale_nuts_exact(*target.args, target.constraint["ys"])
+    zero_counts()
+    N.nuts_kernel.host_syncs = 0
+    (chms, infos), wall = _sync_wall(lambda: run(random.key(0, device=dev)))
+    syncs, launches = N.nuts_kernel.host_syncs, counts()
+    _no_kernel(launches, "29c")
+    sites = {}
+    for addr in ("sigma", "slope", "icept"):
+        draws = chms[addr]
+        check(tuple(draws.shape) == (n_chains, num_samples)
+              and bool(torch.isfinite(draws).all()),
+              f"29c: {addr} draws of shape {tuple(draws.shape)}")
+        rhat, ess = float(split_rhat(draws)), float(ess_autocorr(draws))
+        m, sd = float(draws.double().mean()), float(draws.double().std())
+        mcse = sd / math.sqrt(ess)
+        sites[addr] = {"mean": m, "exact_mean": exact[addr], "sd": sd,
+                       "rhat": rhat, "ess": ess, "mcse": mcse}
+        check(rhat <= 1.01, f"29c: {addr} split R-hat {rhat}")
+        check(abs(m - exact[addr]) <= 4 * mcse,
+              f"29c: {addr} mean {m} vs exact {exact[addr]} (4 MCSE = "
+              f"{4 * mcse})")
+    check(bool((chms["sigma"] > 0).all()), "29c: a sigma draw <= 0")
+    transitions = num_warmup + num_samples
+    short, _ = E.build_scale_nuts(n_chains, 2, 2, depth, device=dev)
+    p_wall, busy, per_kernel, ops, _ = profiled(
+        lambda: short(random.key(1, device=dev)), 1)
+    nuts = {"chains": n_chains, "points": E.REGRESSION_POINTS,
+            "max_depth": depth, "num_warmup": num_warmup,
+            "num_samples": num_samples, "init_draws": E.SCALE_INIT_DRAWS,
+            "transforms": transforms, "wall_s": wall,
+            "eff_samples_per_s": sites["slope"]["ess"] / wall,
+            "ms_per_transition": wall / transitions * 1e3,
+            "syncs_per_transition": syncs / transitions,
+            "mean_tree_leapfrogs": float(infos.num_steps.double().mean()),
+            "sites": sites, "profiled_transitions": 4,
+            "profiled_wall_ms": p_wall, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / p_wall,
+            "device_ops_per_transition": ops / 4}
+    print(f"[29c scale NUTS] {card}: {n_chains} chains x 128 points, "
+          f"max_depth {depth}, {num_warmup} + {num_samples}, sigma ~ "
+          f"half_normal(1) by {transforms}: wall {wall:.2f} s, "
+          f"{nuts['eff_samples_per_s']:.6g} eff-samples/s (slope), "
+          f"{nuts['ms_per_transition']:.3f} ms and "
+          f"{nuts['syncs_per_transition']:.2f} host syncs a transition, "
+          f"{nuts['mean_tree_leapfrogs']:.3f} leapfrogs a tree; "
+          + "; ".join(f"{a}: mean {v['mean']:.6f} vs {v['exact_mean']:.6f} "
+                      f"(4 MCSE {4 * v['mcse']:.3g}), R-hat {v['rhat']:.5f}, "
+                      f"ESS {v['ess']:.6g}" for a, v in sites.items())
+          + f"; profiled 2 + 2 transitions: wall {p_wall:.1f} ms, device "
+          f"busy {busy:.2f} ms, idle share {nuts['idle_share']:.4f}, "
+          f"{ops / 4:.0f} device ops a transition; {top(per_kernel, 4)}",
+          flush=True)
+    t_all = time.perf_counter() - t_phase
+    print(f"[29] {card}: phase 29 in {t_all:.1f} s (29a {t_29a:.1f} s)",
+          flush=True)
+    return {"distributions": rows, "distributions_s": t_29a,
+            "phase_29_s": t_all, "gamma_poisson_sir": sir,
+            "scale_nuts": nuts}
+
+
 def main() -> int:
     import torch
 
@@ -3150,6 +3605,10 @@ def main() -> int:
     dist28 = distributed_phase(dev, card, zero_counts, counts)
     base28 = dist28["config_4_sharded"]["baseline"]["launches"]
 
+    # -- 29. the distribution library, the gamma-Poisson SIR, scale NUTS --
+    dist29 = distributions_phase(dev, card, zero_counts, counts)
+    gp29 = dist29["gamma_poisson_sir"]["launches"]
+
     lm_main = lm_rows[s_hmm]
     record = {"kernels": [
         {"name": "cdf_counts", "route": "cuda",
@@ -3160,7 +3619,7 @@ def main() -> int:
                       + mixture["sir_launches"]["cdf_counts"]
                       + trace_level["trace_pf"]["launches"]["cdf_counts"]
                       + trace_level["data_smc"]["launches"]["cdf_counts"]
-                      + base28["cdf_counts"]),
+                      + base28["cdf_counts"] + gp29["cdf_counts"]),
          "launches_by_run": {
              **{k: v["cdf_counts"] for k, v in by_run.items()},
              "config_4_path": launches["cdf_counts"],
@@ -3174,7 +3633,8 @@ def main() -> int:
                  "cdf_counts"],
              "build_data_smc": trace_level["data_smc"]["launches"][
                  "cdf_counts"],
-             "build_sharded_pf_baseline": base28["cdf_counts"]},
+             "build_sharded_pf_baseline": base28["cdf_counts"],
+             "build_gamma_poisson_sir": gp29["cdf_counts"]},
          "max_abs_err": cdf_err,
          "ms": cdf_ms, "plain_ms": cdf_plain_ms,
          "bound_ms": cdf_bound, "bound_by": cdf_by, "library_ms": None,
@@ -3235,7 +3695,8 @@ def main() -> int:
         "trace_level": trace_level, "gensp": gensp, "config_5": config5,
         "config_9": config9, "config_10": config10,
         "parallel_tempering": pt_map["pt"],
-        "map_laplace": pt_map["map_laplace"], "distributed": dist28}
+        "map_laplace": pt_map["map_laplace"], "distributed": dist28,
+        **dist29}
     print(card, flush=True)
     print(json.dumps(finite_or_none(record)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,16 @@ __all__ = [
     "dirichlet",
     "geometric",
     "event_shape",
+    "cauchy",
+    "laplace",
+    "logistic",
+    "truncated_normal",
+    "t",
+    "chisquare",
+    "poisson",
+    "binomial",
+    "multinomial",
+    "loops",
 ]
 
 MASK32 = 0xFFFFFFFF
@@ -303,6 +313,30 @@ def event_shape(k: torch.Tensor, *params) -> tuple:
 _GAMMA_MAX_ROUNDS = 64
 
 
+class LoopStats:
+    """What the masked rejection loops cost: their trips, and their host
+    syncs (one read of "is any lane still active" a trip)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.trips = 0
+        self.host_syncs = 0
+
+
+#: The counts of every masked loop of this module and of the
+#: distributions' own loops (``lang/distributions/stdlib.py``).
+loops = LoopStats()
+
+
+def any_active(mask: torch.Tensor) -> bool:
+    """Whether any lane of a masked loop is still active: one host sync,
+    counted in :data:`loops`."""
+    loops.host_syncs += 1
+    return bool(mask.any())
+
+
 def loggamma(k: torch.Tensor, alpha, shape=()):
     """``log`` of a Gamma(``alpha``, 1) draw per key, by Marsaglia–Tsang
     with the ``alpha < 1`` boost. Each round draws one normal and one
@@ -330,7 +364,8 @@ def loggamma(k: torch.Tensor, alpha, shape=()):
         log_g = torch.where(take, torch.log(d) + torch.log(
             torch.clamp(v, min=1e-30)), log_g)
         done = done | ok
-        if bool(done.all()):
+        loops.trips += 1
+        if not any_active(~done):
             break
     else:
         raise RuntimeError("loggamma: rejection loop did not finish")
@@ -371,3 +406,291 @@ def geometric(k: torch.Tensor, p, shape=()) -> torch.Tensor:
     u = uniform(k, shape)
     g = torch.floor(torch.log(u) / torch.log1p(-p).expand(u.shape)) + 1.0
     return g.to(torch.int32)
+
+
+def cauchy(k: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.cauchy``: ``tan(pi (u - 1/2))``, ``u`` uniform on
+    [eps, 1)."""
+    u = uniform(k, shape, minval=float(np.finfo(np.float32).eps), maxval=1.0)
+    return torch.tan(_f32(np.pi, k.device) * (u - 0.5))
+
+
+def laplace(k: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.laplace``: ``sign(u) log1p(-|u|)``, ``u`` uniform on
+    (-1, 1)."""
+    lo = -1.0 + float(np.finfo(np.float32).epsneg)
+    u = uniform(k, shape, minval=lo, maxval=1.0)
+    return torch.sign(u) * log1p_f32(-u.abs())
+
+
+def logistic(k: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.logistic``: ``log(u) - log1p(-u)``."""
+    u = uniform(k, shape, minval=float(np.finfo(np.float32).tiny),
+                maxval=1.0)
+    return torch.log(u) - log1p_f32(-u)
+
+
+def truncated_normal(k: torch.Tensor, lower, upper, shape=()
+                     ) -> torch.Tensor:
+    """``jax.random.truncated_normal``: the normal's inverse CDF of a
+    uniform between ``erf(lower/√2)`` and ``erf(upper/√2)``, clipped to
+    the open interval (``erfinv_f32``, XLA's polynomial)."""
+    lower, upper = _f32(lower, k.device), _f32(upper, k.device)
+    sqrt2 = _f32(np.sqrt(2.0), k.device)
+    a = torch.erf(lower / sqrt2)
+    b = torch.erf(upper / sqrt2)
+    u = uniform(k, shape, minval=a, maxval=b)
+    out = sqrt2 * erfinv_f32(u)
+    inf = _f32(math.inf, k.device)
+    return torch.clamp(out, torch.nextafter(lower, inf),
+                       torch.nextafter(upper, -inf))
+
+
+def t(k: torch.Tensor, df, shape=()) -> torch.Tensor:
+    """``jax.random.t``: ``n sqrt(df/2 / g)``, ``n`` normal and ``g`` a
+    Gamma(df/2) draw on the split keys (the gamma from :func:`loggamma`,
+    so equal to JAX's in distribution only)."""
+    df = _f32(df, k.device)
+    key_n, key_g = split(k).unbind(-2)
+    n = normal(key_n, shape)
+    half_df = df / 2.0
+    g = gamma(key_g, half_df, shape)
+    return n * torch.sqrt(half_df / g)
+
+
+def chisquare(k: torch.Tensor, df, shape=()) -> torch.Tensor:
+    """``jax.random.chisquare``: ``2 exp(loggamma(df/2))``."""
+    return torch.exp(loggamma(k, _f32(df, k.device) / 2.0, shape)) * 2.0
+
+
+# -- integer samplers: JAX's loops, lane by lane ----------------------------
+#
+# ``jax.random.poisson`` and ``binomial`` loop until every element of a
+# key's draw is done, splitting the key each trip. Under ``vmap`` over
+# keys each key loops on its own and keeps its state once done; here all
+# keys step together, and a key's state changes only while one of its
+# elements is active, so every key follows the schedule it has alone.
+
+_INT32_MAX = 2 ** 31 - 1
+_F32_MAX = float(np.finfo(np.float32).max)
+
+
+def _key_active(mask: torch.Tensor, nd: int) -> torch.Tensor:
+    """Per key: whether any of its ``nd`` trailing draw axes is active,
+    broadcast back over them."""
+    if nd == 0:
+        return mask
+    flat = mask.reshape(tuple(mask.shape[:mask.ndim - nd]) + (-1,)).any(-1)
+    return flat.reshape(tuple(flat.shape) + (1,) * nd)
+
+
+def _poisson_knuth(k, lam, shape):
+    nd = len(shape)
+    count = torch.zeros(lam.shape, dtype=torch.int32, device=lam.device)
+    log_prod = torch.zeros_like(lam)
+    rng, i = k, 0
+    while i < _INT32_MAX:
+        live = log_prod > -lam
+        on = _key_active(live, nd)
+        if not any_active(on):
+            break
+        rng, sub = split(rng).unbind(-2)
+        count = torch.where(on & live, count + 1, count)
+        u = uniform(sub, shape)
+        log_prod = torch.where(on, log_prod + torch.log(u), log_prod)
+        i += 1
+        loops.trips += 1
+    return count - 1
+
+
+def _poisson_rejection(k, lam, shape):
+    nd = len(shape)
+    log_lam = torch.log(lam)
+    b = 0.931 + 2.53 * torch.sqrt(lam)
+    a = -0.059 + 0.02483 * b
+    inv_alpha = 1.1239 + 1.1328 / (b - 3.4)
+    v_r = 0.9277 - 3.6224 / (b - 2)
+    k_out = torch.full_like(lam, -1.0)
+    accepted = torch.zeros(lam.shape, dtype=torch.bool, device=lam.device)
+    key, i = k, 0
+    while i < _INT32_MAX:
+        on = _key_active(~accepted, nd)
+        if not any_active(on):
+            break
+        key, sub0, sub1 = split(key, 3).unbind(-2)
+        u = uniform(sub0, shape) - 0.5
+        v = uniform(sub1, shape)
+        u_shifted = 0.5 - u.abs()
+        kk = torch.floor((2 * a / u_shifted + b) * u + lam + 0.43)
+        s = torch.log(v * inv_alpha / (a / (u_shifted * u_shifted) + b))
+        tt = -lam + kk * log_lam - torch.lgamma(kk + 1)
+        accept1 = (u_shifted >= 0.07) & (v <= v_r)
+        reject = (kk < 0) | ((u_shifted < 0.013) & (v > u_shifted))
+        accept = (accept1 | (~reject & (s <= tt))) & on
+        k_out = torch.where(accept, kk, k_out)
+        accepted = accepted | accept
+        i += 1
+        loops.trips += 1
+    return k_out.to(torch.int32)
+
+
+def poisson(k: torch.Tensor, lam, shape=()) -> torch.Tensor:
+    """``jax.random.poisson`` (int32): Knuth's product of uniforms below
+    ``lam = 10``, Hörmann's transformed rejection above, each with JAX's
+    key schedule, so that a key gives JAX's integer wherever the two
+    libraries' ``log`` and ``lgamma`` round alike. An algorithm that no
+    lane needs is not run (JAX runs both and selects)."""
+    out_shape = tuple(k.shape[:-1]) + tuple(shape)
+    lam = torch.broadcast_to(_f32(lam, k.device), out_shape)
+    use_knuth = torch.isnan(lam) | (lam < 10)
+    zero = torch.zeros((), dtype=torch.int32, device=k.device)
+    result = torch.zeros(out_shape, dtype=torch.int32, device=k.device)
+    if any_active(use_knuth):
+        lam_knuth = torch.where(use_knuth, lam, torch.zeros_like(lam))
+        result = torch.where(use_knuth, _poisson_knuth(k, lam_knuth, shape),
+                             result)
+    if any_active(~use_knuth):
+        lam_rej = torch.where(use_knuth, torch.full_like(lam, 1e5), lam)
+        result = torch.where(use_knuth, result,
+                             _poisson_rejection(k, lam_rej, shape))
+    return torch.where(lam == 0, zero, result)
+
+
+def _stirling_approx_tail(k: torch.Tensor) -> torch.Tensor:
+    """JAX's ``_stirling_approx_tail``, its clamp before the series
+    included."""
+    table = torch.tensor([
+        0.0810614667953272, 0.0413406959554092, 0.0276779256849983,
+        0.02079067210376509, 0.0166446911898211, 0.0138761288230707,
+        0.0118967099458917, 0.0104112652619720, 0.00925546218271273,
+        0.00833056343336287], dtype=k.dtype, device=k.device)
+    use_table = k <= 9
+    k = torch.clamp(k, 0.0, 9.0)
+    kp1sq = (k + 1) * (k + 1)
+    approx = (1.0 / 12 - (1.0 / 360 - 1.0 / 1260 / kp1sq) / kp1sq) / (k + 1)
+    # A NaN k (never drawn here) must not index out of the table.
+    idx = torch.floor(k).to(torch.int64).clamp(0, 9)
+    return torch.where(use_table, table[idx], approx)
+
+
+def _binomial_inversion(key, count, prob, shape):
+    nd = len(shape)
+    log1minusprob = log1p_f32(-prob)
+    num_geom = torch.zeros_like(prob)
+    geom_sum = torch.zeros_like(prob)
+    i = 0
+    while i < _F32_MAX:
+        live = geom_sum <= count
+        on = _key_active(live, nd)
+        if not any_active(on):
+            break
+        sub, key = split(key).unbind(-2)
+        num_geom = torch.where(on & live, num_geom + 1, num_geom)
+        u = uniform(sub, shape)
+        geom = torch.ceil(torch.log(u) / log1minusprob)
+        geom_sum = torch.where(on, geom_sum + geom, geom_sum)
+        i += 1
+        loops.trips += 1
+    return num_geom - 1
+
+
+def _btrs(key, count, prob, shape):
+    nd = len(shape)
+    stddev = torch.sqrt(count * prob * (1 - prob))
+    b = 1.15 + 2.53 * stddev
+    a = -0.0873 + 0.0248 * b + 0.01 * prob
+    c = count * prob + 0.5
+    v_r = 0.92 - 4.2 / b
+    r = prob / (1 - prob)
+    alpha = (2.83 + 5.1 / b) * stddev
+    m = torch.floor((count + 1) * prob)
+    k_out = torch.full_like(prob, -1.0)
+    accepted = torch.zeros(prob.shape, dtype=torch.bool, device=prob.device)
+    i = 0
+    while i < _F32_MAX:
+        on = _key_active(~accepted, nd)
+        if not any_active(on):
+            break
+        key, sub0, sub1 = split(key, 3).unbind(-2)
+        u = uniform(sub0, shape)
+        v = uniform(sub1, shape)
+        u = u - 0.5
+        us = 0.5 - u.abs()
+        accept1 = (us >= 0.07) & (v <= v_r)
+        kk = torch.floor((2 * a / us + b) * u + c)
+        reject = (kk < 0) | (kk > count)
+        v = torch.log(v * alpha / (a / (us * us) + b))
+        ub = ((m + 0.5) * torch.log((m + 1) / (r * (count - m + 1)))
+              + (count + 1) * torch.log((count - m + 1) / (count - kk + 1))
+              + (kk + 0.5) * torch.log(r * (count - kk + 1) / (kk + 1))
+              + _stirling_approx_tail(m)
+              + _stirling_approx_tail(count - m)
+              - _stirling_approx_tail(kk)
+              - _stirling_approx_tail(count - kk))
+        accept = (accept1 | (~reject & (v <= ub))) & on
+        k_out = torch.where(accept, kk, k_out)
+        accepted = accepted | accept
+        i += 1
+        loops.trips += 1
+    return k_out
+
+
+def binomial(k: torch.Tensor, n, p, shape=()) -> torch.Tensor:
+    """``jax.random.binomial`` (f32): inversion by geometric gaps where
+    ``n·min(p, 1-p) <= 10``, BTRS above, with JAX's key schedules and its
+    handling of NaN, negative and infinite arguments."""
+    out_shape = tuple(k.shape[:-1]) + tuple(shape)
+    prob = torch.broadcast_to(_f32(p, k.device), out_shape)
+    count = torch.broadcast_to(_f32(n, k.device), out_shape)
+    p_lt_half = prob < 0.5
+    q = torch.where(p_lt_half, prob, 1.0 - prob)
+    count_nan_or_neg = torch.isnan(count) | (count < 0.0)
+    count_inf = torch.isinf(count)
+    q_is_nan = torch.isnan(q)
+    q_l_0 = q < 0.0
+    q = torch.where(q_is_nan | q_l_0, torch.full_like(q, 0.01), q)
+    use_inversion = count_nan_or_neg | (count * q <= 10.0)
+    count = torch.floor(count)
+    samples = torch.zeros(out_shape, dtype=torch.float32, device=k.device)
+    if any_active(use_inversion):
+        count_inv = torch.where(use_inversion, count, torch.zeros_like(count))
+        samples = torch.where(use_inversion,
+                              _binomial_inversion(k, count_inv, q, shape),
+                              samples)
+    if any_active(~use_inversion):
+        count_btrs = torch.where(use_inversion, torch.full_like(count, 1e4),
+                                 count)
+        q_btrs = torch.where(use_inversion, torch.full_like(q, 0.5), q)
+        samples = torch.where(use_inversion, samples,
+                              _btrs(k, count_btrs, q_btrs, shape))
+    invalid = q_l_0 | q_is_nan | count_nan_or_neg
+    samples = torch.where(invalid, torch.full_like(samples, math.nan),
+                          samples)
+    samples = torch.where(count_inf & ~invalid,
+                          torch.full_like(samples, math.inf), samples)
+    return torch.where(p_lt_half | count_nan_or_neg | q_is_nan | count_inf,
+                       samples, count - samples)
+
+
+def multinomial(k: torch.Tensor, n, p, shape=None) -> torch.Tensor:
+    """``jax.random.multinomial`` (f32 counts): a chain of binomials over
+    the outcomes in order, outcome ``j`` on key ``split(k, K)[j]`` with the
+    ratio of its probability to the mass left. ``shape`` is the per-key
+    batch in front of the outcomes (default: ``p``'s behind the key
+    batch)."""
+    p = _f32(p, k.device)
+    if shape is None:
+        shape = event_shape(k, p[..., 0], n)
+    out_shape = tuple(k.shape[:-1]) + tuple(shape)
+    n = torch.broadcast_to(_f32(n, k.device), out_shape)
+    p = torch.broadcast_to(p, out_shape + tuple(p.shape[-1:]))
+    remaining = torch.flip(torch.cumsum(torch.flip(p, (-1,)), dim=-1), (-1,))
+    ratios = p / torch.where(remaining == 0, torch.ones_like(remaining),
+                             remaining)
+    keys = split(k, p.shape[-1])
+    counts = []
+    for j in range(p.shape[-1]):
+        c = binomial(keys[..., j, :], n, ratios[..., j].clamp(0, 1), shape)
+        n = n - c
+        counts.append(c)
+    return torch.stack(counts, dim=-1)

@@ -52,6 +52,12 @@
   :func:`blr_exact`; :func:`build_pt` and :func:`build_map_laplace`:
   parallel tempering on config 6's model and MAP / Laplace on config
   10's regression;
+- :func:`build_gamma_poisson_sir`: ``ImportanceK`` SIR on the conjugate
+  gamma-Poisson model with its systematic resample (the CDF kernel on
+  the card), against the closed-form posterior mean and evidence;
+- :func:`build_scale_nuts`: config 2's regression with its noise scale
+  free under ``half_normal(1)``, by NUTS with ``transforms="auto"``,
+  against the grid posterior :func:`scale_nuts_exact`;
 - :func:`build_sharded_pf`, :func:`build_sharded_sir`,
   :func:`build_time_sharded_hmm`, :func:`build_sharded_svgd` and
   ``build_nuts_regression(mesh=...)``: config 4's filter (and the
@@ -179,6 +185,12 @@ __all__ = [
     "tempered_exact_posterior",
     "build_pt",
     "build_map_laplace",
+    "gamma_poisson_model",
+    "build_gamma_poisson_sir",
+    "scale_regression_model",
+    "scale_regression_data",
+    "scale_nuts_exact",
+    "build_scale_nuts",
     "build_sharded_pf",
     "build_sharded_sir",
     "hmm_observations",
@@ -1201,6 +1213,138 @@ def build_map_laplace(b: int = 1024, d: int = 64, n_steps: int = 1000,
                                           transforms=res.transforms)
 
     return run, blr_exact(x, y)
+
+
+#: The conjugate gamma-Poisson model of the JAX package's VI tests
+#: (``lam ~ gamma(2, 1)``, ``y ~ poisson(lam)``) and its observation:
+#: the posterior is Gamma(7, 2), with mean 3.5, and p(y = 5) = 6/128.
+GAMMA_POISSON_Y = 5
+GAMMA_POISSON_MEAN = 3.5
+GAMMA_POISSON_LOG_Z = math.log(6.0 / 128.0)
+
+
+def gamma_poisson_model():
+    @g.gen
+    def gamma_poisson():
+        lam = g.gamma(2.0, 1.0) @ "lam"
+        _ = g.poisson(lam) @ "y"
+        return lam
+
+    return gamma_poisson
+
+
+def build_gamma_poisson_sir(k_particles: int = 2 ** 20,
+                            y: int = GAMMA_POISSON_Y, device=None):
+    """``ImportanceK`` SIR on :func:`gamma_poisson_model` with ``y``
+    observed. Returns ``run``: ``run(key) -> dict`` with the posterior
+    mean of ``lam`` (``"mean"``), log Ẑ (``"log_z"``), the weighted
+    particles (``"lam"``, ``"log_weights"``) and the collection after one
+    systematic resample (``"resampled"``, the CDF kernel on the card).
+    Exact answers at y = 5: :data:`GAMMA_POISSON_MEAN` and
+    :data:`GAMMA_POISSON_LOG_Z`."""
+    device = _device(device)
+    target = Target(gamma_poisson_model(), (),
+                    g.C["y"].set(torch.tensor(y, device=device)))
+
+    def run(key):
+        k_run, k_res = random.split(key.to(device)).unbind(-2)
+        col = ImportanceK(target, k_particles=k_particles).run_smc(k_run)
+        lw = col.get_log_weights()
+        lam = col.get_particles().get_choices()["lam"]
+        return {"mean": torch.sum(torch.softmax(lw, dim=0) * lam),
+                "log_z": col.get_log_marginal_likelihood_estimate(),
+                "lam": lam, "log_weights": lw,
+                "resampled": col.resample(k_res)}
+
+    return run
+
+
+#: The scale-free regression: config 2's priors and points, the noise
+#: scale under ``half_normal(1)`` and the data drawn with sd 0.3. Each
+#: chain starts from the best of 16 prior draws: from one draw, about
+#: one chain in six starts at a tiny noise scale far from the data,
+#: diverges at every step of the shared step size and never moves (so
+#: does the JAX package's ``run_nuts``, 11 of 64 chains at 128 points).
+SCALE_NOISE, SCALE_DATA_SEED, SCALE_INIT_DRAWS = 0.3, 3, 16
+
+
+def scale_regression_model():
+    """Config 2's regression with ``sigma ~ half_normal(1.0)`` in place
+    of the fixed noise sd (the JAX package's constrained-NUTS test
+    model, ``tests/inference/test_nuts.py``, with an intercept)."""
+
+    @g.gen
+    def scale_regression(xs):
+        slope = g.normal(0.0, REGRESSION_PRIOR_SD) @ "slope"
+        icept = g.normal(0.0, REGRESSION_PRIOR_SD) @ "icept"
+        sigma = g.half_normal(1.0) @ "sigma"
+        _ = g.mv_normal_diag(slope[..., None] * xs + icept[..., None],
+                             sigma[..., None] * torch.ones_like(xs)) @ "ys"
+
+    return scale_regression
+
+
+def scale_regression_data(n_points: int = REGRESSION_POINTS, device=None):
+    """``xs = linspace(-1, 1, n)``, ``ys = 2·xs − 0.5 + 0.3·normal(key(3),
+    (n,))``, drawn on the CPU so that every device fits the same data."""
+    xs = torch.linspace(-1.0, 1.0, n_points)
+    ys = 2.0 * xs - 0.5 + SCALE_NOISE * random.normal(
+        random.key(SCALE_DATA_SEED), (n_points,))
+    dev = _device(device)
+    return xs.to(dev), ys.to(dev)
+
+
+def scale_nuts_exact(xs, ys, n_grid: int = 4000, sigma_max: float = 2.0
+                     ) -> dict:
+    """The exact posterior means of ``sigma``, ``slope`` and ``icept`` of
+    :func:`scale_regression_model`, float64: ``sigma`` on a grid of
+    ``n_grid`` points on (0, sigma_max], weighted by the Gaussian
+    marginal ``N(y; 0, σ²I + 4·XXᵀ)`` (``X = [xs, 1]``) times the
+    half-normal prior; slope and intercept by the Gaussian conditional
+    means under those weights."""
+    x = np.asarray(torch.as_tensor(xs).cpu(), np.float64)
+    y = np.asarray(torch.as_tensor(ys).cpu(), np.float64)
+    a = np.stack([x, np.ones_like(x)], axis=1)
+    n, prior_var = len(y), REGRESSION_PRIOR_SD ** 2
+    ata, aty, yty = a.T @ a, a.T @ y, y @ y
+    sig = sigma_max * np.arange(1, n_grid + 1) / n_grid
+    logw = np.empty(n_grid)
+    means = np.empty((n_grid, 2))
+    for i, s in enumerate(sig):
+        s2 = s * s
+        # Woodbury: (s²I + v·AAᵀ)⁻¹ = (I − A (s²/v I + AᵀA)⁻¹ Aᵀ) / s².
+        inner = np.linalg.inv(s2 / prior_var * np.eye(2) + ata)
+        quad = (yty - aty @ inner @ aty) / s2
+        logdet = (2 * n * np.log(s)
+                  + np.linalg.slogdet(np.eye(2) + prior_var * ata / s2)[1])
+        logw[i] = -0.5 * (quad + logdet) - 0.5 * s2
+        precision = np.eye(2) / prior_var + ata / s2
+        means[i] = np.linalg.solve(precision, aty / s2)
+    w = np.exp(logw - logw.max())
+    w /= w.sum()
+    return {"sigma": float(w @ sig), "slope": float(w @ means[:, 0]),
+            "icept": float(w @ means[:, 1])}
+
+
+def build_scale_nuts(n_chains: int = 2048, num_warmup: int = 200,
+                     num_samples: int = 200, max_depth: int = 6,
+                     n_points: int = REGRESSION_POINTS, device=None):
+    """NUTS on :func:`scale_regression_model` with
+    :func:`scale_regression_data`, ``transforms="auto"`` (``sigma`` runs
+    through the positive transform its support metadata names), each
+    chain from the best of :data:`SCALE_INIT_DRAWS` prior draws. Returns
+    ``(run, target)``: ``run(key) -> (choices, infos)``, the draws leading
+    with ``(chains, samples)``."""
+    xs, ys = scale_regression_data(n_points, device)
+    target = Target(scale_regression_model(), (xs,), g.C["ys"].set(ys))
+
+    def run(key):
+        return run_nuts(target, key, n_chains=n_chains,
+                        num_warmup=num_warmup, num_samples=num_samples,
+                        max_depth=max_depth, transforms="auto",
+                        init_draws=SCALE_INIT_DRAWS)
+
+    return run, target
 
 
 def _world_mesh(mesh, device: torch.device, axis_name: str):

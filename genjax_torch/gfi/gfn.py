@@ -185,14 +185,17 @@ class GenerativeFunction(Pytree, Generic[R]):
         return empty_trace(self, args)
 
     def __call__(self, *args, **kwargs) -> "GenerativeFunctionClosure[R]":
-        """``gf(args)``; ``sample_shape=`` makes an iid block of a
-        distribution (``normal(0., 1., sample_shape=(2, 3))``), and other
-        keyword arguments go to a ``@gen`` function's ``handle_kwargs``
-        form."""
+        """``gf(args)``; a distribution's named parameters bind to
+        positions (``normal(loc=0., scale=1.)``, its ``bind_kwargs``),
+        ``sample_shape=`` makes an iid block of a distribution
+        (``normal(0., 1., sample_shape=(2, 3))``), and other keyword
+        arguments go to a ``@gen`` function's ``handle_kwargs`` form."""
         from genjax_torch.core.pytree import Const
 
         shape = Const.unwrap(kwargs.pop("sample_shape", None))
         gf = self
+        if kwargs and hasattr(self, "bind_kwargs"):
+            args, kwargs = self.bind_kwargs(args, kwargs), {}
         if shape is not None:
             if not hasattr(self, "iid"):
                 raise TypeError(f"{self!r} takes no sample_shape")

@@ -213,6 +213,7 @@ def run_nuts(
     axis_name: str = "chains",
     transforms: "dict | str | None" = None,
     fixed_budget: bool = False,
+    init_draws: int = 1,
 ):
     """NUTS on a :class:`Target`: chains start from the prior, warm up
     with cross-chain adaptation, and draw. Returns ``(choices, infos)``:
@@ -226,6 +227,12 @@ def run_nuts(
     in unconstrained space and the choices come back constrained.
     ``fixed_budget`` picks the strategy of
     :func:`~genjax_torch.inference.requests.nuts.nuts_kernel`.
+    ``init_draws``: each chain starts from the best (highest joint
+    log-density) of this many prior draws; 1, the default, is the JAX
+    package's start, one prior draw. A chain started where the density's
+    gradient is huge (a tiny noise scale under a half-normal prior)
+    diverges at every step of the step size the other chains set, and
+    never moves; the best of a few draws starts every chain in reach.
 
     The log-density of a position is the target's joint score, taken by
     ``assess`` of the whole choice map (the JAX package reads the same
@@ -242,11 +249,15 @@ def run_nuts(
     chains = torch.arange(lo, hi, device=dev)
     lifted = lift_target(
         target, hi - lo, tree_device((target.args, target.constraint)) or dev)
-    trs, _ = lifted.importance(random.fold_in(k_init.unsqueeze(0), chains),
-                               ChoiceMap.empty())
-    latents0 = unconstrain_choices(
-        lifted.filter_to_unconstrained(trs.get_choices()), transforms)
-    vals0, rebuild = partition_values(latents0)
+    init_keys = random.fold_in(k_init.unsqueeze(0), chains)
+
+    def prior_draw(keys):
+        trs, _ = lifted.importance(keys, ChoiceMap.empty())
+        latents = unconstrain_choices(
+            lifted.filter_to_unconstrained(trs.get_choices()), transforms)
+        return partition_values(latents)
+
+    vals0, rebuild = prior_draw(init_keys)
     check_float_latents(vals0)
     z0s, unravel_vals = ravel_pytree(vals0, 1)
     batch = (hi - lo,)
@@ -257,6 +268,16 @@ def run_nuts(
         score, _ = lifted.p.assess(lifted.constraint | chm_x, lifted.args,
                                    batch=batch)
         return score + fldj
+
+    if init_draws > 1:
+        best = logdensity(z0s)
+        for d in range(1, init_draws):
+            z_d, _ = ravel_pytree(prior_draw(random.fold_in(init_keys, d))[0],
+                                  1)
+            lp = logdensity(z_d)
+            better = lp > best
+            z0s = torch.where(better[:, None], z_d, z0s)
+            best = torch.where(better, lp, best)
 
     z, eps, inv_mass = warmup_chains(
         logdensity, z0s, k_warm, num_warmup, max_depth, target_accept,

@@ -7,13 +7,16 @@ log-density is summed over the event dimensions only, never over ``B``,
 and a score or weight has exactly the shape ``B``. ``edit`` serves
 ``Update`` and ``Regenerate`` with the JAX package's key use: the
 concrete paths hand the key to ``random_weighted`` / ``estimate_logpdf``
-as it is, a tensor flag splits it into sample and estimate keys. Not
-ported yet: named parameters (``normal(loc=..., scale=...)``).
+as it is, a tensor flag splits it into sample and estimate keys. Named
+parameters (``normal(loc=..., scale=...)``, ``categorical(probs=...)``)
+bind to positions by the sampler's parameter names and the
+distribution's aliases (:meth:`ExactDensity.bind_kwargs`).
 """
 
 from __future__ import annotations
 
 import abc
+import inspect
 from typing import Any, Callable
 
 import torch
@@ -272,6 +275,49 @@ class ExactDensity(Distribution):
         lp = event_sum(torch.as_tensor(self.logpdf(v, *args)), r)
         return lp.expand(batch) if r else lp
 
+    def bind_kwargs(self, args: tuple, kwargs: dict) -> tuple:
+        """Named distribution parameters resolved to positional ones
+        (``normal(loc=0., scale=1.)``, ``categorical(probs=p)``) by the
+        sampler's parameter names and the aliases of
+        :meth:`kwarg_aliases`. A name given twice, unknown or missing
+        raises ``TypeError``, as in the JAX package."""
+        kw = dict(kwargs)
+        for name, (target, conv) in self.kwarg_aliases().items():
+            if name in kw:
+                if target in kw:
+                    raise TypeError(
+                        f"{self!r}: both '{name}' and '{target}' given")
+                kw[target] = conv(kw.pop(name))
+        fn = getattr(self, "sampler", None) or self.sample
+        try:
+            params = [p.name for p in inspect.signature(fn).parameters.values()
+                      if p.kind in (p.POSITIONAL_ONLY,
+                                    p.POSITIONAL_OR_KEYWORD)][1:]
+        except (TypeError, ValueError):
+            params = []
+        if not params and kw:
+            raise TypeError(
+                f"{self!r} takes no named parameters, got {list(kw)}")
+        bound = []
+        for i, p in enumerate(params):
+            if i < len(args):
+                if p in kw:
+                    raise TypeError(
+                        f"{self!r}: '{p}' given positionally and by name")
+                bound.append(args[i])
+            elif p in kw:
+                bound.append(kw.pop(p))
+            else:
+                raise TypeError(f"{self!r}: missing parameter '{p}'")
+        if kw:
+            raise TypeError(f"{self!r}: unknown parameters {list(kw)}")
+        return tuple(bound)
+
+    def kwarg_aliases(self) -> dict:
+        """``{alias: (param, converter)}``, e.g. categorical's ``probs``
+        to ``logits`` by log."""
+        return getattr(self, "aliases", None) or {}
+
     def iid(self, sample_shape) -> "IIDBlock":
         """``sample_shape`` iid draws of this distribution as one choice,
         scored by the summed log-density."""
@@ -335,6 +381,7 @@ class ExactDensityFromCallables(ExactDensity):
     name: str = Pytree.static(default="exact_density")
     support: Any = Pytree.static(default=None)
     event_rank: int = Pytree.static(default=0)
+    aliases: Any = Pytree.static(default=None)
 
     def sample(self, key, *args):
         return self.sampler(key, *args)
@@ -354,11 +401,13 @@ class ExactDensityFromCallables(ExactDensity):
 def exact_density(sample: Callable, logpdf: Callable,
                   name: str = "exact_density",
                   support: Any = None,
-                  event_rank: int = 0) -> ExactDensityFromCallables:
+                  event_rank: int = 0,
+                  aliases: Any = None) -> ExactDensityFromCallables:
     """Build an :class:`ExactDensity` from a sampler and a log-density.
     ``sample(key, *params)`` draws one value per key of the key batch;
     ``support`` is the support metadata (a string, a tuple, or a callable
     of the parameters) that gradient samplers read; ``event_rank`` is the
-    rank of one value."""
+    rank of one value; ``aliases`` maps other parameter names to
+    ``(param, converter)`` pairs for named-parameter calls."""
     return ExactDensityFromCallables(sample, logpdf, name, support,
-                                     event_rank)
+                                     event_rank, aliases)

@@ -146,7 +146,10 @@ def gather_leading_axis(tree, mesh: DeviceMesh, axis_name="particles"):
 def replicated(tree, mesh: DeviceMesh):
     """``tree`` as it is, after checking that every tensor leaf holds the
     same value on every rank of ``mesh`` (a max and a min all-reduce a
-    leaf; it raises where the ranks differ)."""
+    leaf; it raises where the ranks differ). A NaN equals a NaN at the
+    same position: a float leaf goes up with its NaN mask beside it and
+    its NaNs set to 0, so a value or its NaN-ness that differs between
+    ranks raises, and a NaN that every rank holds passes."""
     from genjax_torch.parallel.collectives import all_reduce
 
     ax = Axis(mesh.get_group() if mesh.ndim == 1
@@ -156,8 +159,13 @@ def replicated(tree, mesh: DeviceMesh):
     def check(x):
         if not isinstance(x, torch.Tensor):
             return x
-        v = x.detach().to(torch.float64 if x.is_floating_point()
-                          else torch.int64)
+        if x.is_floating_point():
+            v = x.detach().to(torch.float64)
+            nan = torch.isnan(v)
+            v = torch.stack([torch.where(nan, torch.zeros_like(v), v),
+                             nan.to(torch.float64)])
+        else:
+            v = x.detach().to(torch.int64)
         hi = all_reduce(v, dist.ReduceOp.MAX, ax, "replicated")
         lo = all_reduce(v, dist.ReduceOp.MIN, ax, "replicated")
         same = torch.equal(hi, v) and torch.equal(lo, v)

@@ -298,6 +298,28 @@ def test_gather_and_replicated(gloo_worlds):
     assert differs is not None and "differs" in differs
 
 
+NAN = float("nan")
+
+
+@pytest.mark.parametrize("d,values,raises", [
+    (1, [[NAN, 1.0]], False),
+    (2, [[NAN, 1.0], [NAN, 1.0]], False),
+    (1, [[1.0, -np.inf]], False),
+    (2, [[1.0, -np.inf], [1.0, -np.inf]], False),
+    (2, [[NAN], [1.0]], True),
+    (2, [[1.0, NAN], [2.0, NAN]], True),
+], ids=["nan-1", "nan-2", "inf-1", "inf-2", "nan-vs-value", "value-differs"])
+def test_replicated_nan(gloo_worlds, d, values, raises):
+    """A NaN that every rank holds at the same position is replicated; a
+    NaN on one rank against a number on the other, or a number that
+    differs beside a shared NaN, still raises."""
+    got = gloo_worlds(d).run(B.replicated_check, values)
+    if raises:
+        assert all(m is not None and "differs" in m for m in got), got
+    else:
+        assert got == [None] * d
+
+
 def test_particle_mesh_without_a_group_raises():
     from genjax_torch.parallel import particle_mesh
 

@@ -324,12 +324,14 @@ def test_unported_paths_raise():
     model = E.quickstart_model()
     target = Target(model, (2.0, 2.0), gt.C["v"].set(True))
     # ChangeTarget is ported: the estimate is finite. Named distribution
-    # parameters are not, and raise.
+    # parameters are too, and bind to positions; a combinator's named
+    # arguments are not, and raise.
     assert bool(torch.isfinite(
         ImportanceK(target, k_particles=4).estimate_normalizing_constant(
             R.key(0), target)))
+    assert gt.normal(loc=0.0, scale=1.0).args == (0.0, 1.0)
     with pytest.raises(NotImplementedError, match="not ported"):
-        gt.normal(loc=0.0, scale=1.0)
+        gt.normal.vmap()(torch.zeros(3), scale=torch.ones(3))
     marg = Marginal(model, gt.Const(gt.Selection.at["p"]))
     with pytest.raises(TypeError, match="Marginal"):
         Target(marg, (2.0, 2.0), gt.C["v"].set(True))

@@ -138,6 +138,18 @@ def gather_and_check(x):
     return _np(full), differs
 
 
+def replicated_check(values):
+    """``replicated`` on rank r's leaf ``values[r]``: None where it
+    passes, the error text where it raises."""
+    from genjax_torch.parallel import replicated
+
+    try:
+        replicated(torch.tensor(values[dist.get_rank()]), _mesh())
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 # -- SMC and the particle filter ---------------------------------------------
 
 
