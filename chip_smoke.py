@@ -154,6 +154,27 @@ Phases (each prints one line; any failure exits non-zero):
      config 2's regression with sigma ~ half_normal(1) (build_scale_nuts,
      2048 chains, 200 + 200, transforms="auto"): split R-hat <= 1.01 and
      each mean within 4 MCSE of scale_nuts_exact.
+ 30. the per-execution slice: (a) 2048 exact-HMM problems (S = 128,
+     T = 64, config 3's circulant structure) from sample_problem on a
+     key batch, each with its own observations, then each with its own
+     transition variance, through build_hmm_batch (DiscreteHMM's
+     parallel filter and sampler): simulate and assess each launch the
+     log-matmul kernel count_combines(63) times over every problem's
+     pairs; log marginals within 1e-5 relative and live alphas within
+     2e-5 of float64 sequential filtering; FFBS on 8 problems x 2^14
+     draws within 5 se of float64 forward-backward; the kernel at the
+     path's first-level shape (B x 31, 128, 128) beside its plain
+     version, torch.bmm and its bounds; wall (median of 3), device-busy
+     time, idle share and peak memory; (b) per-execution edits of
+     hmm_model at phase 16's width (an IndexRequest with t drawn per
+     execution, Update and Regenerate, and a Vmap Update at lanes named
+     by an index array) against the CPU port on 2^10 executions from the
+     same key data, and the backward request's round trip; (c) a
+     single-site MH sweep over a 32-site normal chain at 2^19 chains on
+     the fine and the coarse @gen edit paths (bitwise equal; sites
+     re-scored a move; wall and dispatched ops a sweep), and the 2-site
+     chain at 2^19 x 200 sweeps within 4 se of 2/3; (d) config 6's wall
+     with the GFI argument checks on and under no_validation().
 Phases 24-27 each print the wall of a run (the median of 3), its rate,
 a profiled short run's device-busy time, idle share and device ops a
 step, and the peak device memory; none launches one of the four kernels,
@@ -437,6 +458,46 @@ def bound(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lm_bound(batch: int, s: int) -> tuple:
+    """The least time (ms) of a (batch, s, s) log-space product, and what
+    bounds it: each operand read and the result written once (12 bytes an
+    entry), against the product as the kernel runs it, three TF32
+    tensor-core products (split TF32). Also the f32 FFMA time of the
+    product, for comparison."""
+    flop = 2.0 * batch * s ** 3
+    t_bytes = 12.0 * batch * s ** 2 / HBM_BYTES_PER_S * 1e3
+    t_tc = 3.0 * flop / TF32_OPS_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_tc else "operations"
+    return max(t_bytes, t_tc), by, flop / F32_OPS_PER_S * 1e3
+
+
+#: The two-sided normal tail beyond 5 standard errors: the level at which
+#: an exact count test stands beside the 5-se checks.
+FIVE_SE_P = math.erfc(5.0 / math.sqrt(2.0))
+
+
+def binomial_two_sided_p(k, n: int, p):
+    """Exact two-sided binomial tails ``2 min(P(K <= k), P(K >= k))``,
+    capped at 1, of counts ``k`` out of ``n`` draws at probabilities
+    ``p`` (tensors of one shape), in float64 from the whole pmf, so that a
+    tail of 1e-30 is not lost to a difference from 1."""
+    import torch
+
+    shape = k.shape
+    k = k.double().reshape(-1, 1)
+    p = p.double().reshape(-1, 1)
+    j = torch.arange(n + 1, dtype=torch.float64, device=k.device)[None]
+    log_pmf = (math.lgamma(n + 1.0) - torch.lgamma(j + 1.0)
+               - torch.lgamma(n - j + 1.0)
+               + torch.where(j == 0, 0.0, j * torch.log(p))
+               + torch.where(j == n, 0.0, (n - j) * torch.log1p(-p)))
+    pmf = log_pmf.exp()
+    lower = (pmf * (j <= k)).sum(-1)
+    upper = (pmf * (j >= k)).sum(-1)
+    return torch.clamp(2.0 * torch.minimum(lower, upper), max=1.0).reshape(
+        shape)
 
 
 def scan_products(n: int) -> int:
@@ -2806,6 +2867,551 @@ def distributions_phase(dev, card: str, zero_counts, counts) -> dict:
             "scale_nuts": nuts}
 
 
+# -- 30. per-execution HMM problems, per-execution edits, fine edits -----
+
+#: 30a: problems, states, steps (the JAX package's Pallas dispatch needs
+#: S a multiple of 128); FFBS: problems, draws each, draws a call.
+HMM_BATCH = (2048, 128, 64)
+FFBS_SIZE = (8, 1 << 14, 1 << 11)
+#: 30b: phase 16's width (states, steps, executions) and the CPU slice.
+EDITS_SIZE = (64, 64, 1 << 19, 1 << 10)
+#: 30b's Vmap part runs on the first this many executions.
+VMAP_EXECUTIONS = 1 << 16
+#: 30c: chains, sites; the 2-site model's chains and sweeps.
+SWEEP_SIZE = (1 << 19, 32, 1 << 19, 200)
+#: 30d: config 6 (particles, rungs, moves) timed with and without checks.
+CHECKS_SIZE = (1 << 19, 16, 2)
+
+
+def _smoothing64(config, obs):
+    """Exact smoothing marginals ``P(z_t = s | x)`` of each problem by
+    forward-backward in float64: ``(P, T, S)``."""
+    import torch
+
+    prior, trans, emit = (v.double() for v in (
+        config.prior_logits, config.transition_logits,
+        config.observation_logits))
+    p, t_len = obs.shape
+    ll = torch.gather(emit, 2, obs[:, None, :].expand(
+        p, emit.shape[1], t_len)).transpose(1, 2)              # (P, T, S)
+    la = [prior + ll[:, 0]]
+    for t in range(1, t_len):
+        la.append(torch.logsumexp(la[-1][:, :, None] + trans, 1) + ll[:, t])
+    lb = [torch.zeros_like(la[0])]
+    for t in range(t_len - 2, -1, -1):
+        lb.append(torch.logsumexp(trans + (ll[:, t + 1] + lb[-1])[:, None, :],
+                                  2))
+    post = torch.stack(la, 1) + torch.stack(lb[::-1], 1)
+    return torch.softmax(post, -1)
+
+
+def hmm_batch_phase(dev, card: str, zero_counts, counts) -> dict:
+    """Phase 30a: B exact-HMM problems from sample_problem on a key batch
+    (each its own observations; then each its own transition variance)
+    through DiscreteHMM's parallel filter, one log-matmul launch per scan
+    level over every problem's pairs."""
+    import torch
+
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+    from genjax_torch.core.scan import count_combines
+    from genjax_torch.lang.distributions.discrete_hmm import (
+        DiscreteHMM,
+        DiscreteHMMConfiguration,
+        forward_filter,
+        forward_filter_parallel,
+        joint_logpdf,
+    )
+    from genjax_torch.ops import logmatmul as lm
+
+    b, s, t_len = HMM_BATCH
+    combines = count_combines(t_len - 1)
+    hmm = DiscreteHMM(use_parallel_filter=True)
+    out = {}
+    for name, per_config in (("observations", False),
+                             ("observations_and_config", True)):
+        simulate, config, problems = E.build_hmm_batch(
+            b, s, t_len, per_execution_config=per_config, device=dev)
+        obs = problems.observations
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        tr = simulate(random.key(41, device=dev))
+        torch.cuda.synchronize()
+        sim_launches = counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(sim_launches["log_matmul"] == combines
+              and sim_launches["cdf_counts"] == sim_launches["fused_step"]
+              == sim_launches["expand_adaptive"] == 0,
+              f"30a {name}: simulate launched {sim_launches}, want "
+              f"{combines} log_matmul launches")
+        z = tr.get_retval()
+        check(tuple(z.shape) == (b, t_len) and int(z.min()) >= 0
+              and int(z.max()) < s, f"30a {name}: paths {tuple(z.shape)}")
+        zero_counts()
+        score, _ = hmm.assess(tr.get_choices(), (config, obs), batch=(b,))
+        torch.cuda.synchronize()
+        check(counts()["log_matmul"] == combines,
+              f"30a {name}: assess launched {counts()}")
+        as_err = _close(score, tr.get_score())
+        check(as_err <= 1.0, f"30a {name}: assess vs simulate {as_err}")
+        # The parallel filter against float64 sequential filtering.
+        a_par, m_par = forward_filter_parallel(config, obs)
+        cfg64 = DiscreteHMMConfiguration(
+            config.prior_logits.double(), config.transition_logits.double(),
+            config.observation_logits.double())
+        a64, m64 = forward_filter(cfg64, obs)
+        m_rel = float(((m_par.double() - m64).abs() / m64.abs()).max())
+        check(m_rel <= 1e-5, f"30a {name}: log marginal rel {m_rel}")
+        live = (a64 - torch.logsumexp(a64, -1, keepdim=True)) > -80.0
+        d_live = (a_par.double() - a64).abs()[live]
+        a_rel = float((d_live / a64.abs()[live].clamp_min(1.0)).max())
+        check(a_rel <= 2e-5, f"30a {name}: alphas rel {a_rel}")
+        exact = joint_logpdf(cfg64, z, obs) - m64
+        sc_err = _close(tr.get_score(), exact)
+        check(sc_err <= 1.0, f"30a {name}: score vs exact {sc_err}")
+        del a_par, a64, live, d_live, tr, score
+        walls, med = _median_wall(None, lambda i: simulate(
+            random.key(42 + i, device=dev)))
+        wall, busy, ops = device_busy(lambda: simulate(
+            random.key(45, device=dev)))
+        out[name] = {"launches": sim_launches, "log_marginal_rel": m_rel,
+                     "alpha_rel": a_rel, "assess_err": as_err,
+                     "score_err": sc_err, "wall_ms": [w * 1e3 for w in walls],
+                     "median_wall_ms": med * 1e3, "device_busy_ms": busy,
+                     "idle_share": 1.0 - busy / wall, "device_ops": ops,
+                     "peak_gb": peak, "problems_per_s": b / med}
+        print(f"[30a hmm batch {name}] {card}: {b} problems x S={s} x "
+              f"T={t_len}: simulate launches {sim_launches} (= "
+              f"{combines} combines a filter), assess vs simulate "
+              f"{as_err:.3g} of its bound; log marginal vs float64 "
+              f"sequential max rel {m_rel:.3g} (bound 1e-5), live alphas "
+              f"max rel {a_rel:.3g} (bound 2e-5), score vs float64 exact "
+              f"{sc_err:.3g} of its bound; wall "
+              f"{[round(w * 1e3, 2) for w in walls]} ms (median "
+              f"{med * 1e3:.2f}), {b / med:.4g} problems/s; "
+              f"profiled run {wall:.2f} ms, device busy {busy:.2f} ms, idle "
+              f"share {1.0 - busy / wall:.4f}, {ops} device ops; peak device "
+              f"memory {peak:.2f} GB", flush=True)
+        if per_config:
+            # FFBS on a few problems: draws' state frequencies against
+            # float64 forward-backward, 5 standard errors.
+            n_prob, n_draws, chunk = FFBS_SIZE
+            sub = DiscreteHMMConfiguration(
+                config.prior_logits[:n_prob],
+                config.transition_logits[:n_prob],
+                config.observation_logits[:n_prob])
+            lifted = DiscreteHMMConfiguration(
+                sub.prior_logits[:, None].expand(n_prob, chunk, s),
+                sub.transition_logits[:, None].expand(n_prob, chunk, s, s),
+                sub.observation_logits[:, None].expand(n_prob, chunk, s, s))
+            o_sub = obs[:n_prob, None].expand(n_prob, chunk, t_len)
+            hist = torch.zeros(n_prob, t_len, s, dtype=torch.float64,
+                               device=dev)
+            for c in range(n_draws // chunk):
+                keys = random.split(random.key(1000 + c, device=dev),
+                                    n_prob * chunk).reshape(n_prob, chunk, 2)
+                _, zs = hmm.random_weighted(keys, lifted, o_sub)
+                hist += torch.nn.functional.one_hot(zs, s).double().sum(1)
+            freq = hist / n_draws
+            exact_m = _smoothing64(sub, obs[:n_prob])
+            # The normal approximation holds where a cell expects 10 draws
+            # or more either way: 5 se there.
+            held = ((exact_m * n_draws >= 10)
+                    & ((1 - exact_m) * n_draws >= 10))
+            se = torch.sqrt(exact_m * (1 - exact_m) / n_draws)
+            z_abs = ((freq - exact_m).abs() / se)[held]
+            worst = float(z_abs.max())
+            check(worst <= 5.0, f"30a FFBS: smoothing marginals at {worst} se")
+            # The other cells by exact binomial tails, a problem-step at a
+            # time: the summed count of the cells that expect < 10 draws,
+            # and that of the cells that expect < 10 misses, each against
+            # its summed probability, at the 5-se level. A draw in a cell
+            # of probability 0 fails on its own.
+            low = (~held) & (exact_m * n_draws < 10)
+            high = (~held) & ~low
+            counts_ = hist
+            groups = torch.stack([(counts_ * low).sum(-1),
+                                  (counts_ * high).sum(-1)])
+            probs = torch.stack([(exact_m * low).sum(-1),
+                                 (exact_m * high).sum(-1)])
+            tails = binomial_two_sided_p(groups, n_draws, probs)
+            rare_p = float(tails.min())
+            impossible = int(hist[exact_m == 0].sum())
+            check(impossible == 0,
+                  f"30a FFBS: {impossible} draws in states of probability 0")
+            check(rare_p >= FIVE_SE_P,
+                  f"30a FFBS: the rarer cells' counts at a two-sided tail of "
+                  f"{rare_p} (bound {FIVE_SE_P:.3g})")
+            tv = float(0.5 * (freq - exact_m).abs().sum(-1).max())
+            out[name]["ffbs_worst_se"] = worst
+            out[name]["ffbs_rare_min_p"] = rare_p
+            out[name]["ffbs_zero_cells"] = int((exact_m == 0).sum())
+            out[name]["ffbs_max_tv"] = tv
+            print(f"[30a FFBS] {card}: {n_prob} problems x {n_draws} draws "
+                  f"(parallel filter and sampler, {chunk} draws a call): "
+                  f"state frequencies vs float64 forward-backward, worst "
+                  f"{worst:.3f} se over the {int(held.sum())} cells that "
+                  f"expect >= 10 draws either way (bound 5); the other "
+                  f"{int((low | high).sum())} cells' summed counts a "
+                  f"problem-step, {int(low.sum())} rare and {int(high.sum())}"
+                  f" near-certain, by exact binomial tails: smallest "
+                  f"two-sided tail {rare_p:.3g} (bound {FIVE_SE_P:.3g}); "
+                  f"{impossible} draws in the {int((exact_m == 0).sum())} "
+                  f"cells of probability 0; largest total variation a step "
+                  f"{tv:.4g}", flush=True)
+        if not per_config:
+            # The kernel at the path's first-level shape: (B * pairs, S, S).
+            ms = (config.transition_logits[:, None]
+                  + torch.gather(config.observation_logits, 2,
+                                 obs[:, None, :].expand(b, s, t_len))
+                  .transpose(1, 2)[:, 1:, None, :])
+            xa = ms[:, 0:-1:2].reshape(-1, s, s)
+            yb = ms[:, 1::2].reshape(-1, s, s)
+            del ms
+            bb = xa.shape[0]
+            t_lm = cuda_ms(lambda: lm.log_matmul(xa, yb), 5)
+            t_plain = cuda_ms(lambda: lm.log_matmul_plain(xa, yb), 3)
+            t_bmm = cuda_ms(lambda: torch.bmm(xa, yb), 5)
+            _, dev_lm, per_kernel, _, _ = profiled(
+                lambda: lm.log_matmul(xa, yb), 3)
+            # One launch over every pair, held against the plain version
+            # on all of them (in chunks, to keep its temporaries small),
+            # at phase 8's tolerance.
+            got = lm.log_matmul(xa, yb)
+            err, chunk = 0.0, 8192
+            for i in range(0, bb, chunk):
+                want = lm.log_matmul_plain(xa[i:i + chunk], yb[i:i + chunk])
+                diff = (got[i:i + chunk] - want).abs()
+                check(bool((diff <= 1e-5 + 1e-5 * want.abs()).all()),
+                      f"30a log_matmul ({bb}, {s}, {s}): pairs {i}-"
+                      f"{i + chunk}: max |kernel - plain| "
+                      f"{float(diff.max())}")
+                err = max(err, float(diff.max()))
+            del got, want, diff
+            flop = 2.0 * bb * s ** 3
+            b_ms, b_by, f32_ms = lm_bound(bb, s)
+            bytes_ms = 12.0 * bb * s ** 2 / HBM_BYTES_PER_S * 1e3
+            tc_ms = 3.0 * flop / TF32_OPS_PER_S * 1e3
+            scratch_gb = lm.build().log_matmul_scratch_floats(
+                bb, s, s, s) * 4 / 1e9
+            out["kernel_row"] = {
+                "ms": t_lm, "plain_ms": t_plain, "bmm_ms": t_bmm,
+                "device_ms": dev_lm, "bound_ms": b_ms, "bound_by": b_by,
+                "tc_bound_ms": tc_ms, "f32_bound_ms": f32_ms,
+                "batch": bb, "max_abs_err": err,
+                "scratch_gb": scratch_gb, "device_by_kernel": per_kernel}
+            print(f"[30a log_matmul B={bb} S={s}] {card}: kernel {t_lm:.4f} "
+                  f"ms by CUDA events (device {dev_lm} ms: "
+                  f"{top(per_kernel, 3)}), plain {t_plain:.4f} ms, torch.bmm "
+                  f"(product alone) {t_bmm:.4f} ms; bound {b_ms:.4f} ms "
+                  f"({b_by}: {12.0 * bb * s ** 2:.4g} B at 3.35 TB/s "
+                  f"{bytes_ms:.4f} ms, split TF32 3 x {flop:.4g} flop at 495 "
+                  f"TFLOP/s {tc_ms:.4f} ms; f32 FFMA {f32_ms:.4f} ms); kernel "
+                  f"at {b_ms / t_lm:.3f} of the bound; kernel / bmm "
+                  f"{t_lm / t_bmm:.3f}; scratch {scratch_gb:.2f} GB; max "
+                  f"|kernel - plain| {err:.3g} over all {bb} pairs (tol 1e-5 "
+                  f"+ 1e-5 |plain|)", flush=True)
+            del xa, yb
+    return out
+
+
+def _hmm_edit_run(model, constraint, keys, ekeys, t_idx, n_states,
+                  obs_logits):
+    """30b's edits of hmm_model on ``keys``: a per-execution IndexRequest
+    (Update, then Regenerate) on the chain, its backward request, and a
+    Vmap Update whose constraint names lanes by an index array."""
+    import torch
+
+    import genjax_torch as g
+    from genjax_torch.gfi.choice_map import Indexed
+
+    tr, _ = model.generate(keys, constraint, ())
+    z_old = tr.get_choices()["chain", :, "z"]
+    z_t = torch.take_along_dim(z_old, t_idx[:, None], 1)[:, 0]
+    new_z = (z_t + 1) % n_states
+    out = {}
+    for name, sub in (("update", g.Update(g.C["z"].set(new_z))),
+                      ("regenerate", g.Regenerate(g.Selection.at["z"]))):
+        req = g.StaticRequest({"chain": g.IndexRequest(t_idx, sub)})
+        new, w, _, bwd = tr.edit(ekeys, req)
+        old_c, new_c = tr.get_subtrace("chain"), new.get_subtrace("chain")
+        scale = sum((new_c.inner.get_subtrace(a).get_score().abs()
+                     + old_c.inner.get_subtrace(a).get_score().abs()).sum(-1)
+                    for a in ("z", "x"))
+        out[name] = (w, new.get_choices()["chain", :, "z"], scale)
+        del old_c, new_c
+        if name == "update":
+            back, wb, _, _ = new.edit(ekeys, bwd)
+            out["back"] = (back.get_choices()["chain", :, "z"], z_old, wb, w)
+            del back
+        # At 2^19 a trace holds about 20 GB: keep one edited trace at a time.
+        del new
+    del tr
+    out["z_old"] = z_old
+    # A Vmap of the emission over the path's lanes, updated at lanes
+    # named by an index array (a duplicate: the first entry wins), on the
+    # first VMAP_EXECUTIONS executions: its categorical draws' Gumbel noise
+    # (executions x lanes x states words) would not fit beside the rest at
+    # 2^19.
+    @g.gen
+    def emit(z):
+        return g.categorical(obs_logits[z]) @ "x"
+
+    vm = emit.vmap()
+    m = min(keys.shape[0], VMAP_EXECUTIONS)
+    keys, ekeys, z_old = keys[:m], ekeys[:m], z_old[:m]
+    vtr = vm.simulate(keys, (z_old,))
+    n_lanes = z_old.shape[1]
+    picked = [n_lanes // 12, n_lanes // 4, n_lanes // 4, 2 * n_lanes // 3]
+    lanes = torch.tensor(picked, device=keys.device)
+    vals = torch.stack([(z_old[:, i] * 7 + 3) % n_states for i in picked], 1)
+    # Per-execution values: the lane axis follows the batch (rank 1).
+    chm = Indexed(g.C["x"].set(vals), lanes, None, 1)
+    vnew, vw, _, _ = vtr.edit(ekeys, g.Update(chm))
+    out["vmap"] = (vw, vnew.get_choices()[:, "x"],
+                   (vnew.get_score().abs() + vtr.get_score().abs()))
+    return out
+
+
+def lane_edits_phase(dev, card: str, zero_counts, counts) -> dict:
+    """Phase 30b: per-execution edits of hmm_model at phase 16's width,
+    against the CPU port on a slice of executions from the same key
+    data."""
+    import torch
+
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+
+    n_states, n_steps, n, n_cpu = EDITS_SIZE
+    _, model, constraint, problem = E.build_hmm_model(n_states, n_steps, n,
+                                                      device=dev)
+    keys = random.split(random.key(51, device=dev), n)
+    ekeys = random.split(random.key(52, device=dev), n)
+    t_idx = torch.randint(0, n_steps - 1, (n,), device=dev,
+                          generator=torch.Generator(dev).manual_seed(53))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    card_out = _hmm_edit_run(model, constraint, keys, ekeys, t_idx,
+                             n_states, problem.config.observation_logits)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    _no_kernel(counts(), "30b")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    z_back, z_old, wb, w = card_out.pop("back")
+    check(bool(torch.equal(z_back, z_old)),
+          "30b: the backward request did not restore the path")
+    back_err = _close(wb, -w)
+    check(back_err <= 1.0, f"30b: backward weight {back_err}")
+    _, model_c, constraint_c, problem_c = E.build_hmm_model(
+        n_states, n_steps, n_cpu, device="cpu")
+    t0 = time.perf_counter()
+    cpu_out = _hmm_edit_run(model_c, constraint_c, keys[:n_cpu].cpu(),
+                            ekeys[:n_cpu].cpu(), t_idx[:n_cpu].cpu(),
+                            n_states, problem_c.config.observation_logits)
+    cpu_s = time.perf_counter() - t0
+    cpu_out.pop("back")
+    # A categorical draw may flip between the devices where two Gumbel
+    # maxima lie within an ulp: such rows (expected about 1e-6 a draw) are
+    # counted and left out of the weight comparison.
+    same = (card_out["z_old"][:n_cpu].cpu() == cpu_out["z_old"]).all(-1)
+    for name in ("update", "regenerate", "vmap"):
+        same &= (card_out[name][1][:n_cpu].cpu() == cpu_out[name][1]).all(-1)
+    flipped = int((~same).sum())
+    check(flipped <= max(1, n_cpu // 1000),
+          f"30b: {flipped} of {n_cpu} executions drew other values on the "
+          "card")
+    worst = {}
+    for name in ("update", "regenerate", "vmap"):
+        (w_g, _, _), (w_c, _, sc) = card_out[name], cpu_out[name]
+        worst[name + " w"] = _close(w_g[:n_cpu].cpu()[same], w_c[same],
+                                    sc[same])
+    bad = {k: v for k, v in worst.items() if v > 1.0}
+    check(not bad, f"30b: card vs CPU beyond the bound: {bad}")
+    moved = float((card_out["regenerate"][1] != z_old).any(1).double().mean())
+    print(f"[30b lane edits] {card}: hmm_model {n_states} x {n_steps} x {n} "
+          f"({card_s:.2f} s, peak device memory {peak:.1f} GB): "
+          f"IndexRequest with t per execution (Update, Regenerate) and a "
+          f"Vmap Update at lanes named by an index array with a duplicate; "
+          f"card vs CPU on {n_cpu} "
+          f"executions ({cpu_s:.2f} s): worst |card - cpu| / bound "
+          f"{({k: round(v, 4) for k, v in worst.items()})} (1e-5 (1 + |w|) "
+          f"plus 1e-6 of the edited sites' score magnitudes), values equal "
+          f"in {n_cpu - flipped} of {n_cpu} executions; "
+          f"the backward Update restores the path (weight {back_err:.3g} of "
+          f"its bound); Regenerate moved z in {moved:.3f} of the executions",
+          flush=True)
+    return {"worst": worst, "card_s": card_s, "cpu_s": cpu_s, "peak_gb": peak,
+            "backward_err": back_err}
+
+
+def fine_edits_phase(dev, card: str, zero_counts, counts) -> dict:
+    """Phase 30c: single-site MH sweeps over a 32-site normal chain on the
+    fine and the coarse @gen edit paths from the same keys, and the
+    2-site chain's posterior mean."""
+    import torch
+
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+    from genjax_torch.lang import static
+
+    n, sites, n2, sweeps2 = SWEEP_SIZE
+    init, sweep = E.build_chain_mh_sweep(n, sites, device=dev)
+    res, walls, ops = {}, {}, {}
+    tr0 = init(random.key(61, device=dev))
+    zero_counts()
+    for fine in (True, False):
+        static.FINE_GRAINED_EDITS = fine
+        try:
+            static.edit_stats.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr, rescored, acc = sweep(random.key(62, device=dev), tr0)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            res[fine] = (tr, rescored, acc, static.edit_stats.fine,
+                         static.edit_stats.coarse)
+            # The median of this run and two more.
+            w, med = _median_wall(first, lambda i: sweep(
+                random.key(63 + i, device=dev), tr0))
+            walls[fine] = med
+            ops[fine] = sum(ops_by_module(lambda: sweep(
+                random.key(62, device=dev), tr0)).values())
+        finally:
+            static.FINE_GRAINED_EDITS = True
+    _no_kernel(counts(), "30c")
+    (tr_f, r_f, a_f, nf, _), (tr_c, r_c, a_c, _, nc) = res[True], res[False]
+    same = all(bool(torch.equal(tr_f.get_choices()[f"x{i}"],
+                                tr_c.get_choices()[f"x{i}"]))
+               for i in range(sites))
+    check(same and bool(torch.equal(tr_f.get_score(), tr_c.get_score()))
+          and bool(torch.equal(a_f, a_c)),
+          "30c: the fine and coarse sweeps differ")
+    check(nf == sites and nc == sites,
+          f"30c: edits served fine {nf}, coarse {nc}")
+    check(max(r_f[1:-1]) <= 2, f"30c: fine re-scored {r_f}")
+    check(r_c == [sites - i + 1 for i in range(sites)],
+          f"30c: coarse re-scored {r_c}")
+    acc_rate = float(a_f.double().mean())
+    # The 2-site model: E[x0 | y = 1] = 2/3, Var = 1/3.
+    init2, sweep2 = E.build_chain_mh_sweep(n2, 2, 0.5, 0.5, 1.0, device=dev)
+    tr2 = init2(random.key(64, device=dev))
+    t0 = time.perf_counter()
+    for i in range(sweeps2):
+        tr2, _, _ = sweep2(random.fold_in(random.key(65, device=dev), i), tr2)
+    torch.cuda.synchronize()
+    s2 = time.perf_counter() - t0
+    x0 = tr2.get_choices()["x0"].double()
+    se = math.sqrt(1.0 / 3.0 / n2)
+    m_err = abs(float(x0.mean()) - 2.0 / 3.0)
+    check(m_err <= 4 * se, f"30c: 2-site mean of x0 off by {m_err} ({se} se)")
+    print(f"[30c fine edits] {card}: MH sweep over a {sites}-site chain at "
+          f"{n} chains: fine and coarse bitwise equal (draws, scores, "
+          f"acceptances; acceptance {acc_rate:.4f}); sites re-scored a move "
+          f"fine {r_f}, coarse {r_c}; wall a sweep fine "
+          f"{walls[True] * 1e3:.1f} ms, coarse {walls[False] * 1e3:.1f} ms "
+          f"(median of 3); PyTorch ops dispatched a sweep fine {ops[True]}, "
+          f"coarse {ops[False]}; 2-site chain at {n2} x {sweeps2} sweeps "
+          f"({s2:.2f} s): mean of x0 {float(x0.mean()):.5f} vs 2/3 "
+          f"(|err| {m_err:.3g}, 4 se {4 * se:.3g})", flush=True)
+    return {"rescored_fine": r_f, "rescored_coarse": r_c,
+            "sweep_ms": {"fine": walls[True] * 1e3,
+                         "coarse": walls[False] * 1e3},
+            "ops_per_sweep": {"fine": ops[True], "coarse": ops[False]},
+            "acceptance": acc_rate, "two_site_mean": float(x0.mean()),
+            "two_site_err": m_err, "two_site_s": s2}
+
+
+def checks_cost_phase(dev, card: str) -> dict:
+    """Phase 30d: config 6 with the GFI argument checks on and under
+    no_validation(), in turns (on, off, on, off, on, off), the median of
+    3 each; the checks a run makes (counted through the module's
+    check_args, which every wrapper calls) and one check's host time."""
+    import torch
+
+    from genjax_torch import entry as E
+    from genjax_torch.core import random, validate
+    from genjax_torch.gfi.choice_map import ChoiceMap
+
+    n, temps, moves = CHECKS_SIZE
+    run6, _ = E.build_tempered_smc(n, temps, moves, device=dev)
+    run6(random.key(71, device=dev))
+    walls = {"checks_on": [], "no_validation": []}
+    for i in range(6):
+        name = "checks_on" if i % 2 == 0 else "no_validation"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "no_validation":
+            with validate.no_validation():
+                run6(random.key(72 + i, device=dev))
+        else:
+            run6(random.key(72 + i, device=dev))
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    med = {k: sorted(v)[1] for k, v in walls.items()}
+    calls = [0]
+    orig = validate.check_args
+
+    def counting(args, where):
+        calls[0] += 1
+        return orig(args, where)
+
+    validate.check_args = counting
+    try:
+        run6(random.key(79, device=dev))
+    finally:
+        validate.check_args = orig
+    key = random.key(0, device=dev)
+    chm = ChoiceMap.empty()
+    reps = 100000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        validate.check_key(key, "w")
+        validate.check_args((), "w")
+        validate.check_choice_map(chm, "w")
+    per_call = (time.perf_counter() - t0) / reps
+    est = calls[0] * per_call
+    d = med["checks_on"] - med["no_validation"]
+    print(f"[30d checks] {card}: config 6 ({n} x {temps} x {moves}) in turns: "
+          f"wall with checks {[round(w * 1e3, 2) for w in walls['checks_on']]}"
+          f" ms, under no_validation() "
+          f"{[round(w * 1e3, 2) for w in walls['no_validation']]} ms (medians "
+          f"{med['checks_on'] * 1e3:.2f} / {med['no_validation'] * 1e3:.2f}, "
+          f"difference {d * 1e3:.2f} ms); {calls[0]} checked GFI calls a "
+          f"run, a call's three checks {per_call * 1e6:.3f} us on the host: "
+          f"{est * 1e3:.3f} ms a run, {est / med['checks_on']:.5f} of its "
+          f"wall", flush=True)
+    return {"wall_ms": {k: [w * 1e3 for w in v] for k, v in walls.items()},
+            "checked_calls": calls[0], "check_us": per_call * 1e6,
+            "checks_ms_estimate": est * 1e3,
+            "checks_share": est / med["checks_on"]}
+
+
+def batched_slice_phase(dev, card: str, zero_counts, counts) -> dict:
+    """Phase 30: 30a-30d."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"hmm_batch": hmm_batch_phase(dev, card, zero_counts, counts)}
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter()
+    out["lane_edits"] = lane_edits_phase(dev, card, zero_counts, counts)
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    out["fine_edits"] = fine_edits_phase(dev, card, zero_counts, counts)
+    t_c = time.perf_counter()
+    out["checks"] = checks_cost_phase(dev, card)
+    t_d = time.perf_counter()
+    out["phase_s"] = {"30a": t_a - t0, "30b": t_b - t_a, "30c": t_c - t_b,
+                      "30d": t_d - t_c, "30": t_d - t0}
+    print(f"[30] {card}: phase 30 in {t_d - t0:.1f} s (30a {t_a - t0:.1f}, "
+          f"30b {t_b - t_a:.1f}, 30c {t_c - t_b:.1f}, 30d {t_d - t_c:.1f})",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3346,22 +3952,24 @@ def main() -> int:
         _, dev_lm, per_kernel, _, _ = profiled(
             lambda: lm.log_matmul(xa, yb), reps)
         flop = 2.0 * b_dim * s_dim ** 3
-        b_ms, b_by = bound(12.0 * b_dim * s_dim ** 2, flop)
-        # The split-TF32 route's own bound: three tensor-core products.
+        # The bound of the product as the kernel runs it (split TF32);
+        # the f32 FFMA time beside it.
+        b_ms, b_by, f32_ms = lm_bound(b_dim, s_dim)
         tc_ms = 3.0 * flop / TF32_OPS_PER_S * 1e3
         lm_rows[s_dim] = {"ms": t_lm, "plain_ms": t_plain, "bmm_ms": t_bmm,
                           "device_ms": dev_lm, "bound_ms": b_ms,
                           "bound_by": b_by, "tc_bound_ms": tc_ms,
+                          "f32_bound_ms": f32_ms,
                           "batch": b_dim, "device_by_kernel": per_kernel}
         print(f"[13 log_matmul B={b_dim} S={s_dim}] {card}: kernel "
               f"{t_lm:.4f} ms (device {dev_lm} ms: {top(per_kernel, 3)}), "
               f"plain {t_plain:.4f} ms, torch.bmm (product alone) "
-              f"{t_bmm:.4f} ms; bounds: f32 FFMA {b_ms:.4f} ms ({b_by}: "
-              f"{flop:.4g} flop at 67 TFLOP/s, {12.0 * b_dim * s_dim ** 2:.4g}"
-              f" B), split TF32 {tc_ms:.4f} ms (3 x {flop:.4g} flop at 495 "
-              f"TFLOP/s); kernel at {b_ms / t_lm:.3f} of the f32 bound and "
-              f"{tc_ms / t_lm:.3f} of the tensor-core bound; kernel / bmm "
-              f"{t_lm / t_bmm:.3f}", flush=True)
+              f"{t_bmm:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+              f"{12.0 * b_dim * s_dim ** 2:.4g} B at 3.35 TB/s, split TF32 "
+              f"3 x {flop:.4g} flop at 495 TFLOP/s {tc_ms:.4f} ms); f32 FFMA "
+              f"{f32_ms:.4f} ms at 67 TFLOP/s; kernel at {b_ms / t_lm:.3f} "
+              f"of the bound and {f32_ms / t_lm:.3f} of the f32 FFMA time; "
+              f"kernel / bmm {t_lm / t_bmm:.3f}", flush=True)
     del ms_full, xa, yb
 
     ea_ms = cuda_ms(lambda: ea.expand_adaptive(leaf, cc, n), 50)
@@ -3609,6 +4217,14 @@ def main() -> int:
     dist29 = distributions_phase(dev, card, zero_counts, counts)
     gp29 = dist29["gamma_poisson_sir"]["launches"]
 
+    # -- 30. per-execution HMM problems and edits, fine-grained edits ------
+    slice30 = batched_slice_phase(dev, card, zero_counts, counts)
+    hb30 = slice30["hmm_batch"]
+    lm_batch = sum(hb30[k]["launches"]["log_matmul"]
+                   for k in ("observations", "observations_and_config"))
+    row30 = hb30.pop("kernel_row")
+    lm_rows[f"{HMM_BATCH[1]}x{row30['batch']}"] = row30
+
     lm_main = lm_rows[s_hmm]
     record = {"kernels": [
         {"name": "cdf_counts", "route": "cuda",
@@ -3660,13 +4276,14 @@ def main() -> int:
         {"name": "log_matmul", "route": "cuda",
          "source": "genjax_torch/csrc/logmatmul.cu",
          "replaces": "genjax_tpu/ops/logmatmul.py:61",
-         "launches": hmm_launches["log_matmul"],
+         "launches": hmm_launches["log_matmul"] + lm_batch,
          "launches_by_run": {"build_hmm_parallel": hmm_launches[
-             "log_matmul"]},
-         "max_abs_err": lm_err,
+             "log_matmul"], "build_hmm_batch": lm_batch},
+         "max_abs_err": max(lm_err, row30["max_abs_err"]),
          "ms": lm_main["ms"], "plain_ms": lm_main["plain_ms"],
          "bound_ms": lm_main["bound_ms"], "bound_by": lm_main["bound_by"],
          "tc_bound_ms": lm_main["tc_bound_ms"],
+         "f32_bound_ms": lm_main["f32_bound_ms"],
          "library_ms": None, "product_only_bmm_ms": lm_main["bmm_ms"],
          "device_ms": lm_main["device_ms"],
          "shape": [lm_main["batch"], s_hmm, s_hmm],
@@ -3696,7 +4313,7 @@ def main() -> int:
         "config_9": config9, "config_10": config10,
         "parallel_tempering": pt_map["pt"],
         "map_laplace": pt_map["map_laplace"], "distributed": dist28,
-        **dist29}
+        **dist29, "batched_slice": slice30}
     print(card, flush=True)
     print(json.dumps(finite_or_none(record)), flush=True)
     print(json.dumps({"ok": True, "device": {

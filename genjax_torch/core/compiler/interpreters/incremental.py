@@ -1,7 +1,12 @@
 """The two-point change lattice (``NoChange`` / ``UnknownChange``) and
 ``Diff``-annotated values (counterpart of
-``genjax_tpu/core/compiler/interpreters/incremental.py``, data types only;
-the jaxpr change-propagation interpreter is not ported).
+``genjax_tpu/core/compiler/interpreters/incremental.py``, data types only).
+An argdiffs tree may carry one ``Diff`` for a whole argument or one per
+leaf: the fine-grained ``@gen`` edit path (``lang/static_edit.py``) hands
+each site its arguments leaf by leaf, ``UnknownChange`` on the leaves a
+change reached. The JAX package's jaxpr change-propagation interpreter
+has no counterpart: the port tracks changes through the body's torch
+operations at run time.
 """
 
 from __future__ import annotations

@@ -58,6 +58,14 @@
 - :func:`build_scale_nuts`: config 2's regression with its noise scale
   free under ``half_normal(1)``, by NUTS with ``transforms="auto"``,
   against the grid posterior :func:`scale_nuts_exact`;
+- :func:`build_hmm_batch`: a batch of exact-HMM problems from
+  ``sample_problem`` on a key batch, each with its own observations (and,
+  optionally, its own transition variance), through ``DiscreteHMM``'s
+  parallel-prefix filter, one log-matmul launch per scan level over every
+  problem's pairs;
+- :func:`build_chain_mh_sweep`: single-site MH sweeps (``Regenerate`` of
+  each site in turn) over a normal chain, the fine-grained ``@gen`` edit
+  path against the coarse one (``lang/static.py::FINE_GRAINED_EDITS``);
 - :func:`build_sharded_pf`, :func:`build_sharded_sir`,
   :func:`build_time_sharded_hmm`, :func:`build_sharded_svgd` and
   ``build_nuts_regression(mesh=...)``: config 4's filter (and the
@@ -146,6 +154,9 @@ __all__ = [
     "tempered_exact_log_z",
     "build_tempered_smc",
     "build_hmm_model",
+    "build_hmm_batch",
+    "chain_model",
+    "build_chain_mh_sweep",
     "regression_model",
     "regression_data",
     "regression_exact_posterior",
@@ -485,6 +496,98 @@ def build_hmm_model(n_states: int = 64, n_steps: int = 64,
         return model.generate(random.split(key, n_particles), constraint, ())
 
     return generate, model, constraint, problem
+
+
+def build_hmm_batch(n_problems: int = 2048, n_states: int = 128,
+                    n_steps: int = 64, per_execution_config: bool = False,
+                    device=None):
+    """A batch of exact-HMM problems: ``sample_problem`` on
+    ``split(key(3), n_problems)`` with config 3's circulant structure
+    (``circulant(S, S)``), each problem with its own observations and,
+    with ``per_execution_config``, its own ``transition_variance``
+    drawn from ``0.5 + 1.5 · uniform(key(7), (n_problems,))``. Returns
+    ``(simulate, config, problems)``: ``simulate(key)`` runs
+    ``DiscreteHMM(use_parallel_filter=True).simulate`` on
+    ``split(key, n_problems)``, one path per problem; ``config`` leads
+    with the batch (a zero-stride view where it is shared) and
+    ``problems`` holds the observations and the exact log marginals."""
+    dev = _device(device)
+    variance = 1.0
+    if per_execution_config:
+        variance = 0.5 + 1.5 * random.uniform(random.key(7, device=dev),
+                                              (n_problems,))
+    config = DiscreteHMMConfiguration.circulant(
+        n_states, n_states, transition_variance=variance, device=dev)
+    batch = (n_problems,)
+    if not per_execution_config:
+        config = DiscreteHMMConfiguration(
+            config.prior_logits.expand(batch + (n_states,)),
+            config.transition_logits.expand(batch + (n_states, n_states)),
+            config.observation_logits.expand(batch + (n_states, n_states)))
+    problems = sample_problem(
+        random.split(random.key(3, device=dev), n_problems), config, n_steps)
+    hmm = DiscreteHMM(use_parallel_filter=True)
+
+    def simulate(key):
+        return hmm.simulate(random.split(key, n_problems),
+                            (config, problems.observations))
+
+    return simulate, config, problems
+
+
+def chain_model(n_sites: int, step_sd: float = 1.0, obs_sd: float = 1.0):
+    """A normal chain ``x0 ~ N(0, 1)``, ``x_i ~ N(x_{i-1}, step_sd)``,
+    observed through ``y ~ N(x_{n-1}, obs_sd)``. At ``n_sites = 2``,
+    ``step_sd = obs_sd = 0.5`` and ``y = 1`` the posterior mean of ``x0``
+    is 2/3."""
+
+    @g.gen
+    def chain():
+        x = g.normal(0.0, 1.0) @ "x0"
+        for i in range(1, n_sites):
+            x = g.normal(x, step_sd) @ f"x{i}"
+        g.normal(x, obs_sd) @ "y"
+        return x
+
+    return chain
+
+
+def build_chain_mh_sweep(n_chains: int = 2 ** 19, n_sites: int = 32,
+                         step_sd: float = 1.0, obs_sd: float = 1.0,
+                         y: float = 1.0, device=None):
+    """Single-site MH over :func:`chain_model` with ``y`` observed: a sweep
+    proposes ``Regenerate`` of ``x0``, ..., ``x_{n-1}`` in turn, each
+    accepted by its weight (``inference.mh``). Returns ``(init, sweep)``:
+    ``init(key)`` importance-samples the chains' start on
+    ``split(key, n_chains)``; ``sweep(key, trace) -> (trace, rescored,
+    accepted)`` runs one sweep, move ``i`` on ``fold_in(split(key,
+    n_chains), i)``, and
+    gives the sites each move re-scored (``static.edit_stats``) and the
+    chains each move accepted. The edit path is whichever
+    ``lang/static.py::FINE_GRAINED_EDITS`` selects."""
+    from genjax_torch.lang import static
+
+    dev = _device(device)
+    model = chain_model(n_sites, step_sd, obs_sd)
+    obs = g.C["y"].set(torch.full((n_chains,), y, device=dev))
+    addrs = [f"x{i}" for i in range(n_sites)]
+
+    def init(key):
+        tr, _ = model.generate(random.split(key, n_chains), obs, ())
+        return tr
+
+    def sweep(key, trace):
+        keys = random.split(key, n_chains)
+        rescored, accepted = [], []
+        for i, addr in enumerate(addrs):
+            before = static.edit_stats.sites_rescored
+            trace, acc = mh(random.fold_in(keys, i), trace,
+                            g.Regenerate(g.Selection.at[addr]))
+            rescored.append(static.edit_stats.sites_rescored - before)
+            accepted.append(acc)
+        return trace, rescored, torch.stack(accepted)
+
+    return init, sweep
 
 
 #: Config 2's data: ``n`` points on [-1, 1], noise sd, prior sd.

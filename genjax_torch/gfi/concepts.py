@@ -79,7 +79,9 @@ class PrimitiveEditRequest(EditRequest):
 class IndexRequest(PrimitiveEditRequest):
     """Apply a sub-request at one index of a vectorized generative
     function (a Vmap lane or a Scan step). ``idx`` is an int or a 0-d
-    tensor: the same lane in every execution of a batch."""
+    tensor (the same lane in every execution of a batch), or a tensor of
+    the batch's shape (one lane per execution, as ``jax.vmap`` of the
+    edit with the index mapped serves it)."""
 
     idx: Any
     subrequest: EditRequest

@@ -3,7 +3,10 @@
 the combinators (``vmap``, ``repeat``, ``scan``, ``accumulate``,
 ``reduce``, ``iterate``, ``iterate_final``, ``masked_iterate``, ``mask``,
 ``dimap``, ``map``, ``contramap``, ``switch``, ``mix``, ``or_else``,
-``marginal``)."""
+``marginal``). Every concrete GFI method validates its arguments
+(``core/validate.py``), and the postfix methods and the combinator
+constructors they call check theirs (``core/argcheck.py``), as in the
+JAX package."""
 
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from genjax_torch.gfi.selection import Selection
 R = TypeVar("R")
 
 __all__ = ["Trace", "GenerativeFunction", "GenerativeFunctionClosure",
-           "check_batch_args"]
+           "IgnoreKwargs", "check_batch_args"]
 
 
 def check_batch_args(args: tuple, batch: tuple) -> None:
@@ -139,6 +142,14 @@ class GenerativeFunction(Pytree, Generic[R]):
     has lifted the constants already, and a distribution's draw and
     log-density take the batch rank from the key."""
 
+    def __init_subclass__(cls, **kwargs):
+        # Argument validation on every concrete GFI method a subclass
+        # defines (``core/validate.py``).
+        super().__init_subclass__(**kwargs)
+        from genjax_torch.core.validate import install_gfi_checks
+
+        install_gfi_checks(cls)
+
     @abc.abstractmethod
     def simulate(self, key, args: tuple) -> Trace[R]:
         """Sample a trace: choices ~ P(·; args)."""
@@ -189,7 +200,8 @@ class GenerativeFunction(Pytree, Generic[R]):
         positions (``normal(loc=0., scale=1.)``, its ``bind_kwargs``),
         ``sample_shape=`` makes an iid block of a distribution
         (``normal(0., 1., sample_shape=(2, 3))``), and other keyword
-        arguments go to a ``@gen`` function's ``handle_kwargs`` form."""
+        arguments go to the ``handle_kwargs`` form: a ``@gen`` function
+        applies them, any other generative function ignores them."""
         from genjax_torch.core.pytree import Const
 
         shape = Const.unwrap(kwargs.pop("sample_shape", None))
@@ -197,23 +209,29 @@ class GenerativeFunction(Pytree, Generic[R]):
         if kwargs and hasattr(self, "bind_kwargs"):
             args, kwargs = self.bind_kwargs(args, kwargs), {}
         if shape is not None:
-            if not hasattr(self, "iid"):
-                raise TypeError(f"{self!r} takes no sample_shape")
-            gf = self.iid(shape)
+            if hasattr(self, "iid"):
+                gf = self.iid(shape)
+            else:
+                kwargs["sample_shape"] = shape
         if kwargs:
-            if not hasattr(gf, "handle_kwargs"):
-                raise NotImplementedError(
-                    f"named arguments {sorted(kwargs)} of {gf!r} are not "
-                    "ported yet")
             return GenerativeFunctionClosure(gf.handle_kwargs(),
                                              (args, kwargs))
         return GenerativeFunctionClosure(gf, args)
 
+    def handle_kwargs(self) -> "GenerativeFunction[R]":
+        """The form taking ``(args, kwargs)`` as its arguments. By
+        default the named arguments are ignored (distributions and
+        combinators take positional arguments only); ``Fn`` applies
+        them."""
+        return IgnoreKwargs(self)
+
     # -- combinator postfix methods ---------------------------------------
 
     def vmap(self, *, in_axes=0, axis_size=None):
+        from genjax_torch.core.argcheck import check_in_axes
         from genjax_torch.lang.combinators.vmap import Vmap
 
+        check_in_axes(in_axes, "GenerativeFunction.vmap")
         return Vmap(self, in_axes=in_axes, axis_size=axis_size)
 
     def repeat(self, *, n: int):
@@ -237,13 +255,17 @@ class GenerativeFunction(Pytree, Generic[R]):
         return reduce()(self)
 
     def iterate(self, *, n: int):
+        from genjax_torch.core.argcheck import check_static_int
         from genjax_torch.lang.combinators.scan import iterate
 
+        check_static_int(n, "iterate(n=...)")
         return iterate(n=n)(self)
 
     def iterate_final(self, *, n: int):
+        from genjax_torch.core.argcheck import check_static_int
         from genjax_torch.lang.combinators.scan import iterate_final
 
+        check_static_int(n, "iterate_final(n=...)")
         return iterate_final(n=n)(self)
 
     def masked_iterate(self):
@@ -262,8 +284,13 @@ class GenerativeFunction(Pytree, Generic[R]):
         return MaskCombinator(self)
 
     def dimap(self, *, pre=None, post=None):
+        from genjax_torch.core.argcheck import check_callable
         from genjax_torch.lang.combinators.dimap import dimap
 
+        if pre is not None:
+            check_callable(pre, "dimap(pre=...)")
+        if post is not None:
+            check_callable(post, "dimap(post=...)")
         return dimap(pre=pre, post=post)(self)
 
     def map(self, post):
@@ -272,8 +299,10 @@ class GenerativeFunction(Pytree, Generic[R]):
         return map_retval(post)(self)
 
     def contramap(self, pre):
+        from genjax_torch.core.argcheck import check_callable
         from genjax_torch.lang.combinators.dimap import contramap
 
+        check_callable(pre, "dimap(pre=...)")
         return contramap(pre)(self)
 
     def switch(self, *branches):
@@ -300,6 +329,34 @@ class GenerativeFunction(Pytree, Generic[R]):
                 f"{type(selection).__name__}: {selection!r}.")
         sel = selection if selection is not None else Selection.all()
         return Marginal(self, Pytree.const(sel), algorithm)
+
+
+@Pytree.dataclass
+class IgnoreKwargs(GenerativeFunction[Any]):
+    """The ``(args, kwargs)`` calling convention over a generative
+    function that takes positional arguments only: the named arguments
+    are dropped."""
+
+    wrapped: GenerativeFunction[Any]
+
+    def simulate(self, key, args):
+        (a, _kwargs) = args
+        return self.wrapped.simulate(key, a)
+
+    def assess(self, chm, args, batch: tuple = ()):
+        (a, _kwargs) = args
+        return self.wrapped.assess(chm, a, batch=batch)
+
+    def generate(self, key, constraint, args):
+        (a, _kwargs) = args
+        return self.wrapped.generate(key, constraint, a)
+
+    def project(self, key, trace, selection):
+        return self.wrapped.project(key, trace, selection)
+
+    def edit(self, key, trace, request, argdiffs):
+        (a_diffs, _kwargs) = argdiffs
+        return self.wrapped.edit(key, trace, request, a_diffs)
 
 
 @Pytree.dataclass

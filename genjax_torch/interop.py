@@ -13,13 +13,13 @@ import numpy as np
 import torch
 
 from genjax_torch.core.pytree import tree_map
-from genjax_torch.gfi.choice_map import ChoiceMap
+from genjax_torch.gfi.choice_map import ChoiceMap, Indexed
 from genjax_torch.lang.distributions.discrete_hmm import (
     DiscreteHMMConfiguration,
 )
 
 __all__ = ["key_from_numpy", "choice_map_from_numpy", "ensemble_from_numpy",
-           "hmm_config_from_numpy", "params_from_numpy"]
+           "hmm_config_from_numpy", "lanes_from_numpy", "params_from_numpy"]
 
 
 def key_from_numpy(data, device=None) -> torch.Tensor:
@@ -53,11 +53,25 @@ def hmm_config_from_numpy(prior, trans, obs, device=None
                           ) -> DiscreteHMMConfiguration:
     """A port ``DiscreteHMMConfiguration`` from the three logit arrays of
     a JAX one (``prior_logits``, ``transition_logits``,
-    ``observation_logits``, each through ``np.asarray``), as f32."""
+    ``observation_logits``, each through ``np.asarray``), as f32. Arrays
+    with a batch of problems in front (``jax.vmap`` of a constructor)
+    give a batched configuration."""
     def f32(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
     return DiscreteHMMConfiguration(f32(prior), f32(trans), f32(obs))
+
+
+def lanes_from_numpy(mapping: Mapping, batch_rank: int = 0,
+                     device=None) -> ChoiceMap:
+    """The stacked choices of a JAX ``Vmap`` or ``Scan`` trace, ``{addr:
+    values}`` with the lane axis after ``batch_rank`` batch axes (as
+    ``np.asarray(tr.get_choices()[:, addr])`` gives them, under
+    ``jax.vmap`` with the batch in front), as the port's lane choice map:
+    lane ``i`` at ``chm[i, addr]``."""
+    inner = ChoiceMap.d({addr: torch.tensor(np.asarray(v), device=device)
+                         for addr, v in mapping.items()})
+    return Indexed(inner, None, None, batch_rank)
 
 
 def params_from_numpy(tree, device=None):

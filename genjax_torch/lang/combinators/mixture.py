@@ -8,7 +8,7 @@ the components followed by a ``Switch`` on it (counterpart of
 from __future__ import annotations
 
 from genjax_torch.gfi.gfn import GenerativeFunction
-from genjax_torch.lang.combinators.switch import Switch, switch
+from genjax_torch.lang.combinators.switch import Switch
 from genjax_torch.lang.static import gen
 
 __all__ = ["mix"]
@@ -25,7 +25,9 @@ _MIX_CACHE: dict = {}
 def mix(*fns: GenerativeFunction) -> GenerativeFunction:
     """Arguments ``(logits, branch0_args, branch1_args, ...)``: draws a
     component from ``categorical(logits)``, then runs that branch."""
-    switch(*fns)  # checks the components
+    from genjax_torch.core.argcheck import check_gen_fns
+
+    check_gen_fns(fns, "mix")
     try:
         cached = _MIX_CACHE.get(fns)
     except TypeError:  # an unhashable component: no cache

@@ -10,7 +10,7 @@ import torch
 
 from genjax_torch.gfi.gfn import GenerativeFunction
 from genjax_torch.lang.combinators.dimap import Dimap
-from genjax_torch.lang.combinators.switch import Switch, switch
+from genjax_torch.lang.combinators.switch import Switch
 
 __all__ = ["OrElse", "or_else"]
 
@@ -49,7 +49,9 @@ def OrElse(if_fn: GenerativeFunction,
 
 def or_else(else_fn: GenerativeFunction):
     """Decorator form: ``or_else(else_fn)(if_fn)``."""
-    switch(else_fn)  # checks the argument
+    from genjax_torch.core.argcheck import check_gen_fn
+
+    check_gen_fn(else_fn, "or_else")
 
     def decorator(if_fn: GenerativeFunction):
         return OrElse(if_fn, else_fn)

@@ -14,8 +14,9 @@ __all__ = ["repeat"]
 
 def repeat(*, n: int) -> Callable:
     """``gf.repeat(n=k)``: choices under lane addresses ``0..n-1``."""
-    if not isinstance(n, int) or isinstance(n, bool) or n < 0:
-        raise TypeError(f"repeat(n=...) expects a static int, got {n!r}")
+    from genjax_torch.core.argcheck import check_static_int
+
+    check_static_int(n, "repeat(n=...)")
 
     def decorator(gen_fn: GenerativeFunction) -> Vmap:
         return Vmap(gen_fn, in_axes=None, axis_size=n)

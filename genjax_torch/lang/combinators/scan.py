@@ -15,7 +15,11 @@ the same (tensor-flag) path and the same draws as there.
 
 ``IndexRequest`` edits take ``_edit_index_fast``, the O(1) repair of one
 step that re-scores the next under the changed carry; under changed
-arguments they lower to the whole-chain request.
+arguments they lower to the whole-chain request. The repair runs one step
+per execution (a 0-d index is the same step in all): steps ``t_b`` and
+``t_b + 1`` are gathered per execution, and both branches of "is there a
+next step" are computed and chosen per execution, as ``jax.vmap`` runs the
+JAX repair.
 
 A Scan of length 0 has no choices, score 0 and the initial carry as its
 final one; its stacked trace and outputs have a step axis of length 0,
@@ -51,9 +55,11 @@ from genjax_torch.lang.combinators.mask import MaskCombinator
 from genjax_torch.lang.combinators.vmap import (
     batch_rank,
     carries_batch,
-    put_lane,
+    lane_positions,
+    put_lanes,
     shared,
     take_lane,
+    take_lanes,
 )
 
 __all__ = [
@@ -244,6 +250,10 @@ class Scan(GenerativeFunction[Any]):
         if isinstance(request, IndexRequest):
             if Diff.static_check_no_change(argdiffs):
                 return self._edit_index_fast(key, trace, request)
+            if isinstance(request.idx, torch.Tensor) and request.idx.ndim:
+                raise NotImplementedError(
+                    "Scan IndexRequest with one index per execution under "
+                    "changed arguments is not ported")
             # Changed arguments: the O(1) repair would score from the
             # old step arguments, so lower to the whole-chain request.
             sub = request.subrequest
@@ -287,55 +297,95 @@ class Scan(GenerativeFunction[Any]):
         return new_trace, w, Diff.unknown_change(new_trace.get_retval()), bwd
 
     def _edit_index_fast(self, key, trace: ScanTrace, request: IndexRequest):
-        """O(1) repair of step ``t``: edit it, re-score step ``t + 1``
-        under the new carry, and require that the carry out of ``t + 1``
-        is unchanged, so that no later step is touched."""
-        t = request.idx
-        t = int(t) if isinstance(t, torch.Tensor) and t.ndim == 0 else t
-        if not isinstance(t, int):
-            raise NotImplementedError(
-                "Scan IndexRequest with one index per execution is not "
-                "ported yet; pass an int or a 0-d tensor")
+        """O(1) repair of step ``t_b`` in execution ``b``: edit it, re-score
+        step ``t_b + 1`` under the new carry, and require that the carry
+        out of ``t_b + 1`` is unchanged, so that no later step is touched.
+        A 0-d index names the same step in every execution and must lie in
+        range, as the JAX repair's check requires. An index of the batch's
+        shape out of range does what ``jax.vmap`` of the JAX repair does:
+        a negative one counts from the end, reads clamp into the steps and
+        writes out of range are dropped; the carry check runs on the
+        executions with ``0 <= t_b < n - 2``."""
         n, rank = trace.n, batch_rank(trace)
-        if not 0 <= t < n:
-            raise IndexError("Scan IndexRequest: index out of range.")
+        batch = tuple(key.shape[:-1])
+        t = request.idx
+        if not isinstance(t, torch.Tensor) or t.ndim == 0:
+            t = int(t)
+            if not 0 <= t < n:
+                raise IndexError("Scan IndexRequest: index out of range.")
+            t = torch.full(batch, t, dtype=torch.int64, device=key.device)
+        elif tuple(t.shape) != batch:
+            raise ValueError(
+                f"Scan IndexRequest: an index of shape {tuple(t.shape)} under "
+                f"the batch {batch}: give one index per execution, or a 0-d "
+                "one")
+        else:
+            t = t.to(key.device, torch.int64)
+
+        def where(cond, a, b):
+            """``a`` where ``cond`` (shape ``B``) holds, else ``b``, leaf
+            by leaf; a Python value becomes a tensor beside a tensor."""
+            def pick(x, y):
+                tensors = [v for v in (x, y) if isinstance(v, torch.Tensor)]
+                if not tensors:
+                    return x if x is y or x == y else pick(torch.as_tensor(x),
+                                                           y)
+                ref = tensors[0]
+                x = torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
+                y = torch.as_tensor(y, dtype=ref.dtype, device=ref.device)
+                c = cond.reshape(tuple(cond.shape) + (1,) * (
+                    max(x.ndim, y.ndim) - cond.ndim))
+                return torch.where(c, x, y)
+            return tree_map(pick, a, b)
+
         k_t, k_next = random.split(key).unbind(-2)
-        sub_t = take_lane(trace.inner, t, rank)
+        at_t, read_t = lane_positions(t, n)
+        sub_t = take_lanes(trace.inner, read_t, rank)
         new_t, w, _, bwd_t = request.subrequest.edit(
             k_t, sub_t, Diff.no_change(sub_t.get_args()))
         carry_t, out_t = new_t.get_retval()
-        new_inner = put_lane(trace.inner, new_t, sub_t, t, rank)
-        final, outs = trace.retval
-        outs = _put_out(outs, out_t, t, rank)
-        if t == n - 1:
-            final = carry_t
-        else:
-            sub_next = take_lane(trace.inner, t + 1, rank)
-            old_carry, _ = sub_next.get_retval()
-            _, x_next = sub_next.get_args()
-            new_next, w_next, _, _ = Update(ChoiceMap.empty()).edit(
-                k_next, sub_next, (Diff.tree_diff(carry_t, UnknownChange),
-                                   Diff.tree_diff(x_next, NoChange)))
-            carry_next, out_next = new_next.get_retval()
-            if t < n - 2 and not all(
-                    bool(torch.isclose(torch.as_tensor(a), torch.as_tensor(b))
-                         .all()) for a, b in zip(tree_leaves(carry_next),
-                                                 tree_leaves(old_carry))):
+
+        has_next = t < n - 1
+        at_next, read_next = lane_positions(torch.clamp(t + 1, max=n - 1), n)
+        sub_next = take_lanes(trace.inner, read_next, rank)
+        old_carry, _ = sub_next.get_retval()
+        _, x_next = sub_next.get_args()
+        new_next, w_next, _, _ = Update(ChoiceMap.empty()).edit(
+            k_next, sub_next, (Diff.tree_diff(carry_t, UnknownChange),
+                               Diff.tree_diff(x_next, NoChange)))
+        carry_next, out_next = new_next.get_retval()
+        inside = (t >= 0) & (t < n - 2)
+        for a, b in zip(tree_leaves(carry_next), tree_leaves(old_carry)):
+            same = torch.isclose(torch.as_tensor(a), torch.as_tensor(b))
+            same = same.reshape(tuple(inside.shape) + (-1,)).all(-1)
+            if not bool((same | ~inside).all()):
                 raise ValueError(
                     "Scan IndexRequest: the carry changed past step idx+1; "
                     "use a full Update/Regenerate edit instead.")
-            new_inner = put_lane(new_inner, new_next, sub_next, t + 1, rank)
-            outs = _put_out(outs, out_next, t + 1, rank)
-            if t == n - 2:
-                final = carry_next
-            w = w + w_next
+
+        # Without a next step the second write re-writes the repaired step.
+        guarded = tree_map(
+            lambda nx, sn, nt, st: sn if nx is sn and nt is st else
+            where(has_next, nx, nt), new_next, sub_next, new_t, sub_t)
+        new_inner = put_lanes(trace.inner, [(new_t, sub_t, at_t),
+                                            (guarded, sub_next, at_next)],
+                              n, rank)
+        final, outs = trace.retval
+        if outs is not None:
+            # Step t + 1's output as the first write leaves it.
+            first = (at_t == read_next) & (at_t >= 0) & (at_t < n)
+            old_out_next = where(first, out_t,
+                                 take_lanes(outs, read_next, rank))
+            outs = put_lanes(outs, [
+                (out_t, None, at_t),
+                (where(has_next, out_next, old_out_next), None, at_next)],
+                n, rank)
+        final = where(t == n - 1, carry_t,
+                      where(t == n - 2, carry_next, final))
+        w = w + torch.where(has_next, w_next, torch.zeros_like(w_next))
         new_trace = ScanTrace(self, new_inner, trace.args, (final, outs), n)
         return (new_trace, w, Diff.unknown_change(new_trace.get_retval()),
-                IndexRequest(t, bwd_t))
-
-
-def _put_out(outs, out, t: int, rank: int):
-    return put_lane(outs, out, None, t, rank) if outs is not None else outs
+                IndexRequest(request.idx, bwd_t))
 
 
 def scan(*, n: int | None = None) -> Callable:

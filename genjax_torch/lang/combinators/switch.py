@@ -262,8 +262,7 @@ class Switch(GenerativeFunction[Any]):
 
 def switch(*branches: GenerativeFunction) -> Switch:
     """``Switch`` over ``branches``."""
-    for b in branches:
-        if not isinstance(b, GenerativeFunction):
-            raise TypeError(
-                f"switch expects generative functions, got {type(b).__name__}")
+    from genjax_torch.core.argcheck import check_gen_fns
+
+    check_gen_fns(branches, "switch")
     return Switch(tuple(branches))

@@ -22,12 +22,15 @@ from genjax_torch.core import random
 from genjax_torch.core.compiler.interpreters.incremental import Diff
 from genjax_torch.core.pytree import Pytree, tree_leaves, tree_map
 from genjax_torch.gfi.choice_map import (
+    Choice,
     ChoiceMap,
     Empty,
+    Filtered,
     Indexed,
     Or,
     Static,
 )
+from genjax_torch.gfi.choice_map import Switch as ChmSwitch
 from genjax_torch.gfi.concepts import (
     Argdiffs,
     EditRequest,
@@ -84,47 +87,136 @@ def take_lane(tree, idx, rank: int):
     return tree_map(pick, tree)
 
 
-def put_lane(stacked, new, old, idx, rank: int):
-    """Write lane ``idx`` of ``new`` back into ``stacked`` at axis
-    ``rank``: a leaf the edit did not replace (``new is old``) keeps the
-    stacked tensor as it is, so an untouched leaf is never copied."""
+def lane_positions(idx: torch.Tensor, n: int):
+    """A per-execution lane index (shape ``B``) as ``jax.vmap`` of an
+    indexed edit reads it: a negative index counts from the end; a read
+    clamps into ``[0, n)`` and a write out of range is dropped. Returns
+    ``(at, read)``: the normalized index and the clamped one."""
+    idx = idx.to(torch.int64)
+    at = torch.where(idx < 0, idx + n, idx)
+    return at, at.clamp(0, n - 1)
 
-    def put(b, v, o):
-        if v is o or not isinstance(b, torch.Tensor) or b.ndim <= rank:
+
+def take_lanes(tree, pos: torch.Tensor, rank: int):
+    """Lane ``pos[b]`` of execution ``b`` (``pos`` of the batch's shape,
+    in range) of every leaf stacked at axis ``rank``."""
+
+    def pick(v):
+        if not isinstance(v, torch.Tensor) or v.ndim <= rank:
+            return v
+        p = pos.to(v.device).reshape(tuple(pos.shape)
+                                     + (1,) * (v.ndim - rank))
+        p = p.expand(tuple(v.shape[:rank]) + (1,) + tuple(v.shape[rank + 1:]))
+        return torch.take_along_dim(v, p, dim=rank).squeeze(rank)
+
+    return tree_map(pick, tree)
+
+
+def put_lanes(stacked, writes, n: int, rank: int):
+    """Write lanes back into ``stacked``, in order: each of ``writes`` is
+    ``(new, old, at)``, lane ``at[b]`` of execution ``b`` taking ``new``'s
+    value; an execution whose ``at`` is out of ``[0, n)`` keeps its lane
+    (a dropped write). A leaf that no write replaced (``new is old``)
+    keeps the stacked tensor; any other is copied once and written in
+    place."""
+    lead = [(at.clamp(0, n - 1), (at >= 0) & (at < n)) for _, _, at in writes]
+
+    def put(b, *leaves):
+        if not isinstance(b, torch.Tensor) or b.ndim <= rank:
             return b
-        v = torch.as_tensor(v, dtype=b.dtype, device=b.device)
-        v = v.expand(tuple(b.shape[:rank]) + tuple(b.shape[rank + 1:]))
-        out = b.clone()
-        out[(slice(None),) * rank + (idx,)] = v
-        return out
+        out = None
+        for v, o, (read, inside) in zip(leaves[0::2], leaves[1::2], lead):
+            if v is o:
+                continue
+            shape = tuple(b.shape[:rank]) + (1,) + tuple(b.shape[rank + 1:])
+            idx = read.reshape(tuple(read.shape)
+                               + (1,) * (b.ndim - rank)).expand(shape)
+            if out is None:
+                out = b.clone()
+            cur = torch.take_along_dim(out, idx, dim=rank)
+            v = torch.as_tensor(v, dtype=b.dtype, device=b.device)
+            v = v.expand(shape[:rank] + shape[rank + 1:]).unsqueeze(rank)
+            keep = inside.reshape(tuple(inside.shape)
+                                  + (1,) * (b.ndim - rank))
+            out.scatter_(rank, idx, torch.where(keep, v, cur))
+        return b if out is None else out
 
-    return tree_map(put, stacked, new, old)
+    trees = []
+    for new, old, _ in writes:
+        trees += [new, old]
+    return tree_map(put, stacked, *trees)
 
 
 def lane_constraint(chm: ChoiceMap, n: int, rank: int,
                     device=None) -> ChoiceMap:
     """The constraint of every lane at once, in the ``B + (n,)`` layout:
-    a canonical ``Indexed`` node gives its stacked inner map, an integer
-    key ``k`` the lanes' ``k``-th submap masked to lane ``k`` (flags of
-    shape ``(1,) * rank + (n,)``, which broadcast against the leading
-    axes as every flag does)."""
+    lane ``i`` of the result holds what ``chm.get_submap(i)`` reads in the
+    JAX package (there, per lane under ``jax.vmap``). Lane flags have the
+    shape ``(1,) * rank + (n,)``, which broadcasts against the leading
+    axes as every flag does.
+
+    - a canonical ``Indexed`` node of ``n`` lanes is its stacked inner
+      map; one with an index array (or of another length) gathers, for
+      each lane, the first entry whose address is the lane's, masked
+      where no entry has it; a scalar-address one is its inner map on
+      the lane with that address;
+    - an integer key ``k`` of a ``Static`` node is its submap masked to
+      lane ``k``; string keys address no lane;
+    - ``Or``, ``Filtered`` and ``Switch`` nodes map over their children
+      (a ``Filtered`` node's selection read at each lane's address);
+    - a ``Choice`` holds its values stacked at the lane axis already."""
+    lanes = torch.arange(n, device=device)
+    flag_shape = (1,) * rank + (n,)
+
+    def spread(tree, r):
+        """One lane's values given the lane axis (a zero-stride view)."""
+        def go(v):
+            if not isinstance(v, torch.Tensor) or v.ndim < r:
+                return v
+            return v.unsqueeze(r).expand(
+                tuple(v.shape[:r]) + (n,) + tuple(v.shape[r:]))
+        return tree_map(go, tree)
+
     if chm.static_is_empty():
         return Empty()
-    if isinstance(chm, Indexed) and chm.idx is None:
-        return chm.inner
+    if isinstance(chm, Choice):
+        return chm
+    if isinstance(chm, Indexed):
+        r = chm.batch_rank
+        if chm.idx is None and chm._n() == n:
+            return chm.inner
+        idx = chm._get_idx().to(device)
+        if idx.ndim == 0:
+            return spread(chm.inner, r).mask(
+                (lanes == idx).reshape(flag_shape))
+        eq = idx[None, :] == lanes[:, None]                       # (n, m)
+        pos = torch.argmax(eq.to(torch.int32), dim=1)
+        found = eq.any(dim=1)
+
+        def gather(v):
+            if not isinstance(v, torch.Tensor) or v.ndim <= r:
+                return v
+            return v.index_select(r, pos.to(v.device))
+
+        return tree_map(gather, chm.inner).mask(found.reshape(flag_shape))
     if isinstance(chm, Or):
         return (lane_constraint(chm.left, n, rank, device)
                 | lane_constraint(chm.right, n, rank, device))
     if isinstance(chm, Static):
-        lanes = torch.arange(n, device=device).reshape((1,) * rank + (n,))
         out: ChoiceMap = Empty()
         for k, sub in zip(chm.keys, chm.submaps):
             if isinstance(k, int):
-                out = out | sub.mask(lanes == k)
+                out = out | spread(sub, rank).mask(
+                    (lanes == k).reshape(flag_shape))
         return out
+    if isinstance(chm, Filtered):
+        inner = lane_constraint(chm.inner, n, rank, device)
+        return inner.filter(lane_selection(chm.selection, n, rank, device))
+    if isinstance(chm, ChmSwitch):
+        return ChmSwitch(chm.idx, tuple(
+            lane_constraint(b, n, rank, device) for b in chm.branches))
     raise NotImplementedError(
-        f"a {type(chm).__name__} choice map as a per-lane constraint is not "
-        "ported yet; address lanes with integer keys or a full slice")
+        f"a {type(chm).__name__} choice map as a per-lane constraint")
 
 
 def lane_selection(selection: Selection, n: int, rank: int,
@@ -317,28 +409,40 @@ class Vmap(GenerativeFunction[Any]):
 
     def _edit_index(self, keys, trace: VmapTrace, request: IndexRequest,
                     args, lane_args, unchanged: bool):
-        """Edit one lane: take it out, serve the sub-request, write it
-        back."""
-        idx = request.idx
+        """Edit one lane of each execution: a gather of the lane, the
+        sub-request, a scatter back. A 0-d index names the same lane in
+        every execution, an index of the batch's shape one lane each; out
+        of range, both do what the JAX package's indexing does
+        (:func:`lane_positions`)."""
         rank = batch_rank(trace)
-        if isinstance(idx, torch.Tensor) and idx.ndim:
-            raise NotImplementedError(
-                "IndexRequest with one index per execution is not ported "
-                "yet; pass an int or a 0-d tensor")
-        lane = take_lane(trace.inner, idx, rank)
-        one_args = take_lane(lane_args, idx, rank)
+        batch = tuple(keys.shape[:rank])
+        idx = torch.as_tensor(request.idx, device=keys.device)
+        if idx.ndim == 0:
+            idx = idx.expand(batch)
+        elif tuple(idx.shape) != batch:
+            raise ValueError(
+                f"IndexRequest: an index of shape {tuple(idx.shape)} under "
+                f"the batch {batch}: give one index per execution, or a 0-d "
+                "one")
+        at, read = lane_positions(idx, trace.n)
+        lane = take_lanes(trace.inner, read, rank)
+        one_args = take_lanes(lane_args, read, rank)
         lane_diffs = (Diff.no_change(one_args) if unchanged
                       else Diff.unknown_change(one_args))
         new_lane, w, _, bwd = request.subrequest.edit(
-            keys[(slice(None),) * rank + (idx,)], lane, lane_diffs)
-        new_inner = put_lane(trace.inner, new_lane, lane, idx, rank)
+            take_lanes(keys, read, rank), lane, lane_diffs)
+        new_inner = put_lanes(trace.inner, [(new_lane, lane, at)], trace.n,
+                              rank)
         new_trace = VmapTrace(self, new_inner, args, trace.n)
         return (new_trace, w, Diff.unknown_change(new_trace.get_retval()),
-                IndexRequest(idx, bwd))
+                IndexRequest(request.idx, bwd))
 
 
 def vmap(*, in_axes=0, axis_size=None) -> Callable:
     """Decorator form of ``gf.vmap(...)``."""
+    from genjax_torch.core.argcheck import check_in_axes
+
+    check_in_axes(in_axes, "vmap")
 
     def decorator(gen_fn: GenerativeFunction) -> Vmap:
         return Vmap(gen_fn, in_axes, axis_size)

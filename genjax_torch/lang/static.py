@@ -16,14 +16,17 @@ traced call or leaves in the return value, so that every tensor a
 generative function receives or a trace holds leads with ``B``, whatever
 its length.
 
-``edit`` serves ``Update``, ``Regenerate`` and ``StaticRequest`` by the
-JAX package's coarse handler path: the body runs again under an edit
-handler, each visited site edits its old subtrace (or is generated /
-simulated when it is new), and dropped sites leave the weight. A site or
-return value counts as changed when any of its inputs did. The JAX
-package's default, the staged fine-grained path (``static_edit.py``),
-gives the same draws and weights and only re-scores less; it is not
-ported.
+``edit`` serves ``Update``, ``Regenerate`` and ``StaticRequest``: the
+body runs again under an edit handler, each visited site edits its old
+subtrace (or is generated / simulated when it is new), and dropped sites
+leave the weight. By default (``FINE_GRAINED_EDITS``) a site's arguments
+count as changed leaf by leaf, as the body's own torch operations carry
+a change from the changed arguments and sites (``static_edit.py``), so
+a site is re-scored only when a value feeding it changed. The coarse
+rule, what the flag selects when off and what a body that reads a
+changed tensor's value into Python falls back on, counts every site as
+changed once any argument or earlier return value did. The two give the
+same draws and weights; :data:`edit_stats` counts the sites re-scored.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from genjax_torch.gfi.choice_map import ChoiceMap
 from genjax_torch.gfi.concepts import Argdiffs, EditRequest, Score
 from genjax_torch.gfi.gfn import GenerativeFunction, Trace, check_batch_args
 from genjax_torch.gfi.requests import Regenerate, Update
-from genjax_torch.gfi.selection import Selection
+from genjax_torch.gfi.selection import NoneSel, Selection
 
 __all__ = [
     "gen",
@@ -53,13 +56,38 @@ __all__ = [
     "StaticRequest",
     "trace_here",
     "check_top_level_args",
+    "edit_stats",
     "AddressReuse",
     "MissingAddress",
 ]
 
+#: Fine-grained edits (``static_edit.py``): a site is re-scored only when
+#: a value feeding it changed. False selects the coarse rule.
+FINE_GRAINED_EDITS = True
+
 #: handle_kwargs wrappers for sources without a ``__dict__`` (see
 #: :meth:`Fn.handle_kwargs`).
 _KWARGED_FNS: dict = {}
+
+
+class EditStats:
+    """What ``@gen`` edits cost: ``sites_rescored`` counts the visited
+    sites whose sub-edit had work to do (an argument changed, the request
+    names the site, or the site is new), on both paths;
+    ``fine`` / ``coarse`` count the edits each path served (a fallback
+    counts once on each)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.sites_rescored = 0
+        self.fine = 0
+        self.coarse = 0
+
+
+#: The counts of every ``Fn.edit`` of the process.
+edit_stats = EditStats()
 
 
 class AddressReuse(Exception):
@@ -151,6 +179,8 @@ class _Provenance(TorchFunctionMode):
 
     def lift(self, tree):
         """``tree`` with every constant tensor expanded to the batch."""
+        if not self.batch:
+            return tree
         return tree_map(
             lambda v: v.expand(self.batch + tuple(v.shape))
             if isinstance(v, torch.Tensor) and not self.carries(v) else v,
@@ -212,14 +242,19 @@ class StaticHandler:
     def record(self, subtrace: Trace):
         self.subtraces.append(subtrace)
 
+    def body_mode(self) -> "_Provenance | None":
+        """The mode the body's own operations run under: under a batch,
+        one that tells its constants apart."""
+        return _Provenance(self.batch) if self.batch else None
+
     def run(self, source: Callable, args: tuple):
         """Run the body under this handler; under a batch, with its
         constants told apart (:class:`_Provenance`) and the return
         value's constants lifted."""
         with self:
-            if not self.batch:
+            mode = self.provenance = self.body_mode()
+            if mode is None:
                 return source(*args)
-            mode = self.provenance = _Provenance(self.batch)
             mode.mark(args)
             with mode:
                 retval = source(*args)
@@ -300,25 +335,63 @@ class GenerateHandler(StaticHandler):
 class _EditHandler(StaticHandler):
     """Bookkeeping shared by the three edit handlers: the old trace, the
     per-site key counter, the weight, and whether anything upstream
-    changed (the coarse rule: a site's arguments count as changed once
-    any argument or earlier return value did)."""
+    changed. Without a ``tracker`` a site's arguments count as changed
+    once any argument or earlier return value did (the coarse rule);
+    with one (``static_edit.ChangeTracker``), leaf by leaf as the body's
+    operations carried a change to them, and a site whose arguments did
+    not change and whose request is empty keeps its old subtrace without
+    an edit (the identity, weight 0). Its key is not derived, but the key
+    counter moves on, so every other site draws from the key it draws
+    from on the coarse path."""
 
-    def __init__(self, key, previous: "StaticTrace", args_changed: bool):
+    def __init__(self, key, previous: "StaticTrace", args_changed: bool,
+                 tracker=None):
         super().__init__(key.shape[:-1])
         self.key = key
         self.previous = previous
         self.counter = 0
         self.weight = _zeros(key)
         self.any_change = args_changed
+        self.tracker = tracker
+
+    def body_mode(self):
+        return self.tracker if self.tracker is not None \
+            else super().body_mode()
 
     def next_key(self):
         sub_key = random.fold_in(self.key, self.counter)
         self.counter += 1
         return sub_key
 
-    def argdiffs(self, args):
-        return (Diff.unknown_change(args) if self.any_change
-                else Diff.no_change(args))
+    def site_argdiffs(self, gen_fn, args, old_sub, named: bool):
+        """The site's argdiffs, or ``None`` when the fine path keeps the
+        old subtrace as it is. Counts the site as re-scored when it is
+        edited with a changed argument or a request with work to do
+        (``named``), or is new."""
+        if self.tracker is not None:
+            diffs = self.tracker.argdiffs(gen_fn, args)
+        else:
+            diffs = (Diff.unknown_change(args) if self.any_change
+                     else Diff.no_change(args))
+        changed = not Diff.static_check_no_change(diffs)
+        if (self.tracker is not None and old_sub is not None and not named
+                and not changed):
+            return None
+        if named or changed or old_sub is None:
+            edit_stats.sites_rescored += 1
+        return diffs
+
+    def keep(self, old_sub):
+        """The old subtrace, unedited."""
+        self.counter += 1
+        self.record(old_sub)
+        return old_sub.get_retval()
+
+    def new_site(self, retval):
+        """A site the old trace did not have: its value is new."""
+        self.any_change = True
+        if self.tracker is not None:
+            self.tracker.tag_changed(retval)
 
     def old_subtrace(self, addr):
         try:
@@ -326,9 +399,18 @@ class _EditHandler(StaticHandler):
         except KeyError:
             return None
 
-    def note(self, retdiff):
+    def note(self, retdiff, retval):
         if not Diff.static_check_no_change(retdiff):
             self.any_change = True
+            if self.tracker is not None:
+                self.tracker.tag_changed(retval)
+
+    def retval_changed(self, retval) -> bool:
+        if self.tracker is None:
+            return self.any_change
+        return self.dropped_any or self.tracker.any_changed(retval)
+
+    dropped_any = False
 
     def dropped(self):
         """The old trace's sites that this execution did not visit."""
@@ -344,23 +426,27 @@ class UpdateHandler(_EditHandler):
     visited site is generated under its constraint."""
 
     def __init__(self, key, previous, constraint: ChoiceMap,
-                 args_changed: bool):
-        super().__init__(key, previous, args_changed)
+                 args_changed: bool, tracker=None):
+        super().__init__(key, previous, args_changed, tracker)
         self.constraint = constraint
         self.discard: list = []
 
     def handle(self, addr, gen_fn, args):
         self.visit(addr)
-        sub_key = self.next_key()
         submap = self.constraint.get_submap(addr)
         old_sub = self.old_subtrace(addr)
+        diffs = self.site_argdiffs(gen_fn, args, old_sub,
+                                   not submap.static_is_empty())
+        if diffs is None:
+            return self.keep(old_sub)
+        sub_key = self.next_key()
         if old_sub is None:
             new_sub, w = gen_fn.generate(sub_key, submap, args)
-            self.any_change = True
+            self.new_site(new_sub.get_retval())
         else:
             new_sub, w, retdiff, bwd = gen_fn.edit(
-                sub_key, old_sub, Update(submap), self.argdiffs(args))
-            self.note(retdiff)
+                sub_key, old_sub, Update(submap), diffs)
+            self.note(retdiff, new_sub.get_retval())
             if isinstance(bwd, Update) and not bwd.constraint.static_is_empty():
                 self.discard.append((addr, bwd.constraint))
         self.weight = self.weight + w
@@ -371,7 +457,7 @@ class UpdateHandler(_EditHandler):
         """A dropped site leaves the weight and its choices go to the
         discard, so that the backward ``Update`` restores them."""
         for addr, sub in self.dropped():
-            self.any_change = True
+            self.any_change = self.dropped_any = True
             self.weight = self.weight - sub.get_score()
             self.discard.append((addr, sub.get_choices()))
 
@@ -381,29 +467,33 @@ class RegenerateHandler(_EditHandler):
     prior conditionals; a newly visited site is simulated (weight 0)."""
 
     def __init__(self, key, previous, selection: Selection,
-                 args_changed: bool):
-        super().__init__(key, previous, args_changed)
+                 args_changed: bool, tracker=None):
+        super().__init__(key, previous, args_changed, tracker)
         self.selection = selection
 
     def handle(self, addr, gen_fn, args):
         self.visit(addr)
-        sub_key = self.next_key()
+        sel = self.selection(addr)
         old_sub = self.old_subtrace(addr)
+        diffs = self.site_argdiffs(gen_fn, args, old_sub,
+                                   not isinstance(sel, NoneSel))
+        if diffs is None:
+            return self.keep(old_sub)
+        sub_key = self.next_key()
         if old_sub is None:
             new_sub = gen_fn.simulate(sub_key, args)
-            self.any_change = True
+            self.new_site(new_sub.get_retval())
         else:
             new_sub, w, retdiff, _ = gen_fn.edit(
-                sub_key, old_sub, Regenerate(self.selection(addr)),
-                self.argdiffs(args))
-            self.note(retdiff)
+                sub_key, old_sub, Regenerate(sel), diffs)
+            self.note(retdiff, new_sub.get_retval())
             self.weight = self.weight + w
         self.record(new_sub)
         return new_sub.get_retval()
 
     def settle_dropped(self):
         for _, sub in self.dropped():
-            self.any_change = True
+            self.any_change = self.dropped_any = True
             self.weight = self.weight - sub.get_score()
 
 
@@ -411,19 +501,24 @@ class StaticEditHandler(_EditHandler):
     """Serve :class:`StaticRequest`: each site's own request (default: the
     empty ``Update``)."""
 
-    def __init__(self, key, previous, requests: dict, args_changed: bool):
-        super().__init__(key, previous, args_changed)
+    def __init__(self, key, previous, requests: dict, args_changed: bool,
+                 tracker=None):
+        super().__init__(key, previous, args_changed, tracker)
         self.requests = requests
         self.bwd: dict = {}
 
     def handle(self, addr, gen_fn, args):
         self.visit(addr)
-        sub_key = self.next_key()
         request = self.requests.get(addr, Update(ChoiceMap.empty()))
         old_sub = self.previous.get_inner_trace(addr)
-        new_sub, w, retdiff, bwd = request.edit(sub_key, old_sub,
-                                                self.argdiffs(args))
-        self.note(retdiff)
+        diffs = self.site_argdiffs(gen_fn, args, old_sub,
+                                   addr in self.requests)
+        if diffs is None:
+            self.bwd[addr] = request
+            return self.keep(old_sub)
+        sub_key = self.next_key()
+        new_sub, w, retdiff, bwd = request.edit(sub_key, old_sub, diffs)
+        self.note(retdiff, new_sub.get_retval())
         self.weight = self.weight + w
         self.bwd[addr] = bwd
         self.record(new_sub)
@@ -565,23 +660,47 @@ class Fn(GenerativeFunction[Any]):
              argdiffs: Argdiffs):
         args = Diff.tree_primal(argdiffs)
         check_top_level_args(args, tuple(key.shape[:-1]))
+        if not isinstance(request, (Update, Regenerate, StaticRequest)):
+            raise NotImplementedError(
+                f"Fn does not support request {type(request).__name__}")
+        if FINE_GRAINED_EDITS:
+            from genjax_torch.lang import static_edit
+
+            tracker = static_edit.tracker_for(argdiffs, tuple(key.shape[:-1]))
+            if tracker is not None:
+                try:
+                    out = self._edit_with(key, trace, request, argdiffs,
+                                          tracker)
+                    edit_stats.fine += 1
+                    return out
+                except static_edit.Untracked:
+                    # The body read a changed value into Python: rerun
+                    # on the coarse rule, which needs no tracking.
+                    pass
+        edit_stats.coarse += 1
+        return self._edit_with(key, trace, request, argdiffs, None)
+
+    def _edit_with(self, key, trace: StaticTrace, request: EditRequest,
+                   argdiffs: Argdiffs, tracker):
+        """One edit under the coarse rule (``tracker`` None) or the fine
+        one."""
+        args = Diff.tree_primal(argdiffs)
         args_changed = not Diff.static_check_no_change(argdiffs)
         if isinstance(request, Update):
             h: Any = UpdateHandler(key, trace, request.constraint,
-                                   args_changed)
+                                   args_changed, tracker)
         elif isinstance(request, Regenerate):
-            h = RegenerateHandler(key, trace, request.selection, args_changed)
-        elif isinstance(request, StaticRequest):
-            h = StaticEditHandler(key, trace, request.addressed, args_changed)
+            h = RegenerateHandler(key, trace, request.selection, args_changed,
+                                  tracker)
         else:
-            raise NotImplementedError(
-                f"Fn does not support request {type(request).__name__}")
+            h = StaticEditHandler(key, trace, request.addressed, args_changed,
+                                  tracker)
         retval = h.run(self.source, args)
         if not isinstance(request, StaticRequest):
             h.settle_dropped()
         new_trace = StaticTrace(self, args, retval, tuple(h.subtraces),
                                 tuple(h.addresses))
-        retdiff = (Diff.unknown_change(retval) if h.any_change
+        retdiff = (Diff.unknown_change(retval) if h.retval_changed(retval)
                    else Diff.no_change(retval))
         if isinstance(request, Update):
             discard = ChoiceMap.empty()

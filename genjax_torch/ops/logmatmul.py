@@ -67,8 +67,10 @@ def _batch_stride(t: torch.Tensor) -> torch.Tensor:
 
 
 def log_matmul(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-    """The log-space product of ``X`` (B, M, K) and ``Y`` (B, K, N), or of
-    two matrices.
+    """The log-space product of ``X`` (..., M, K) and ``Y`` (..., K, N)
+    with the same leading axes, or of two matrices. Leading axes (a batch
+    of problems and their pairs, ``(B, pairs)``) flatten into the one
+    batch axis of a single launch.
 
     A CPU tensor takes :func:`log_matmul_plain`; a CUDA f32 tensor
     launches the kernel or raises. An empty batch returns an empty result
@@ -79,10 +81,15 @@ def log_matmul(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"log_matmul: no kernel for {X.device} x {Y.device}")
     if X.dtype != torch.float32 or Y.dtype != torch.float32:
         raise ValueError("log_matmul: the kernel takes float32")
-    if X.ndim != Y.ndim or X.ndim not in (2, 3):
+    if X.ndim != Y.ndim or X.ndim < 2 or X.shape[:-2] != Y.shape[:-2]:
         raise ValueError(f"log_matmul: shapes {tuple(X.shape)} x "
-                         f"{tuple(Y.shape)}: want (B, M, K) x (B, K, N) "
+                         f"{tuple(Y.shape)}: want (..., M, K) x (..., K, N) "
                          "or two matrices")
+    if X.ndim > 3:
+        lead = tuple(X.shape[:-2])
+        out = log_matmul(X.reshape((-1,) + tuple(X.shape[-2:])),
+                         Y.reshape((-1,) + tuple(Y.shape[-2:])))
+        return out.reshape(lead + tuple(out.shape[-2:]))
     squeeze = X.ndim == 2
     if squeeze:
         X, Y = X[None], Y[None]

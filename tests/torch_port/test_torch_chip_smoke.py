@@ -9,7 +9,8 @@ fallback path runs, with ``cuda_ms`` and the synchronisation stubbed.
 Phase 28's CPU-side helpers: the rank slices of its local-layout check
 (``layout_slices``, ``layout_mismatches``, which must catch a rank-local
 part whose bits depend on the slice), and the float64 offspring counts
-with their tie count against f32 counts."""
+with their tie count against f32 counts. Phase 30a's float64
+forward-backward oracle against enumeration."""
 
 import json
 import math
@@ -192,3 +193,64 @@ def test_float64_counts_and_their_ties():
     shifted = cc64.clone()
     shifted[5] += 2
     assert chip_smoke.count_ties(shifted, cc64) == (1, 2)
+
+
+def test_smoothing_oracle_matches_enumeration():
+    """Phase 30a's float64 forward-backward against the smoothing
+    marginals by enumerating every path of a small HMM (1e-12)."""
+    import itertools
+
+    from genjax_torch.lang.distributions import DiscreteHMMConfiguration
+
+    torch.manual_seed(0)
+    s, t_len, p = 3, 4, 2
+    cfg = DiscreteHMMConfiguration(
+        torch.log_softmax(torch.randn(p, s), -1),
+        torch.log_softmax(torch.randn(p, s, s), -1),
+        torch.log_softmax(torch.randn(p, s, 2), -1))
+    obs = torch.randint(0, 2, (p, t_len))
+    got = chip_smoke._smoothing64(cfg, obs)
+    for b in range(p):
+        want = torch.zeros(t_len, s, dtype=torch.float64)
+        for z in itertools.product(range(s), repeat=t_len):
+            lp = (cfg.prior_logits[b, z[0]].double()
+                  + sum(cfg.transition_logits[b, z[i], z[i + 1]].double()
+                        for i in range(t_len - 1))
+                  + sum(cfg.observation_logits[b, z[i], obs[b, i]].double()
+                        for i in range(t_len)))
+            for i in range(t_len):
+                want[i, z[i]] += torch.exp(lp)
+        want /= want.sum(-1, keepdim=True)
+        assert torch.allclose(got[b], want, rtol=0, atol=1e-12)
+
+
+def test_binomial_two_sided_tail_against_scipy():
+    """Phase 30a's exact tail of the rare cells' summed counts against
+    scipy's binomial cdf and survival function (1e-9 relative), down to
+    tails far below 1e-16 and at probabilities 0 and 1."""
+    from scipy import stats
+
+    n = 200
+    k = torch.tensor([0.0, 1.0, 3.0, 40.0, 100.0, 199.0, 200.0, 0.0, 200.0])
+    p = torch.tensor([1e-3, 1e-20, 0.02, 0.2, 0.5, 0.999, 0.999, 0.0, 1.0])
+    got = chip_smoke.binomial_two_sided_p(k, n, p)
+    for ki, pi, gi in zip(k.tolist(), p.tolist(), got.tolist()):
+        lower = stats.binom.cdf(ki, n, pi)
+        upper = stats.binom.sf(ki - 1, n, pi)
+        want = min(1.0, 2.0 * min(lower, upper))
+        assert math.isclose(gi, want, rel_tol=1e-9, abs_tol=1e-300), (ki, pi)
+    # A draw where the summed probability is 1e-20: far past 5 se.
+    assert got[1] < chip_smoke.FIVE_SE_P < 1e-6
+
+
+def test_log_matmul_bound_takes_the_split_tf32_rate():
+    """The log-space product's bound is the larger of its bytes and its
+    three TF32 products; the f32 FFMA time rides beside it."""
+    b_ms, by, f32_ms = chip_smoke.lm_bound(63488, 128)
+    assert by == "bytes" and math.isclose(
+        b_ms, 12.0 * 63488 * 128 ** 2 / 3.35e12 * 1e3, rel_tol=1e-12)
+    assert math.isclose(f32_ms, 2.0 * 63488 * 128 ** 3 / 67e12 * 1e3,
+                        rel_tol=1e-12)
+    b_ms, by, _ = chip_smoke.lm_bound(511, 1024)
+    assert by == "operations" and math.isclose(
+        b_ms, 3 * 2.0 * 511 * 1024 ** 3 / 495e12 * 1e3, rel_tol=1e-12)

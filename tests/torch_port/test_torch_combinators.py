@@ -371,8 +371,8 @@ def test_body_constant_of_the_batch_length(name, k):
 def test_discrete_hmm_takes_lifted_parameters_back_to_one_copy():
     """A body hands ``DiscreteHMM`` its configuration lifted to the batch
     (zero-stride): the batched draws and scores equal each execution's
-    own (exactly, 1e-6); parameters that differ across the batch are
-    refused."""
+    own (exactly, 1e-6); parameters that differ across the batch give
+    each execution its own problem's draws and scores (exactly, 1e-6)."""
     from genjax_torch.lang.distributions.discrete_hmm import discrete_hmm
 
     _, cfg = _hmm_configs(s=4, seed=1)
@@ -394,8 +394,15 @@ def test_discrete_hmm_takes_lifted_parameters_back_to_one_copy():
                          cfg.transition_logits.expand(4, 4, 4),
                          cfg.observation_logits.expand(
                              (4,) + tuple(cfg.observation_logits.shape)))
-    with pytest.raises(NotImplementedError, match="per-execution"):
-        discrete_hmm.simulate(keys, (per_exec, obs.expand(4, 5)))
+    per_exec.prior_logits[1:] = torch.log_softmax(
+        torch.arange(4.0) * 0.5, -1)
+    tr = discrete_hmm.simulate(keys, (per_exec, obs.expand(4, 5)))
+    for p in range(4):
+        own = type(cfg)(per_exec.prior_logits[p], cfg.transition_logits,
+                        cfg.observation_logits)
+        one = discrete_hmm.simulate(keys[p], (own, obs))
+        close(tr.get_retval()[p], one.get_retval(), rtol=0, atol=0)
+        close(tr.get_score()[p], one.get_score(), rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("length", [3, 4])

@@ -358,3 +358,126 @@ class TestNestedCompositionContracts:
             close(w, score)
             _, wu, _, _ = tr.edit(R.fold_in(key, 2), Update(chm))
             close(wu, 0.0, atol=1e-5)
+
+
+# -- the request cells: IndexRequest, StaticRequest mixes, DiffAnnotate ----
+
+INDEX_CASES = {
+    "vmap": (3, Selection.at["a"], lambda i: Selection.at[i, "a"]),
+    "scan": (4, Selection.at["z"], lambda i: Selection.at[i, "z"]),
+}
+
+
+def _index_request(structure, seed, idx):
+    """``IndexRequest(i, Regenerate)`` keeps the prior-proposal identity
+    of the whole-trace request at lane or step ``i``, and an ``Update``
+    that puts the old values back restores the score."""
+    model, args = _make_model(structure, 0.5)
+    _, sub_sel, global_sel = INDEX_CASES[structure]
+    key = R.key(seed)
+    tr = model.simulate(key, args)
+    mid, w_fwd, _, _ = tr.edit(R.fold_in(key, 1),
+                               g.IndexRequest(idx, Regenerate(sub_sel)))
+    d_score = mid.get_score().double() - tr.get_score().double()
+    pk = R.fold_in(key, 9)
+    sel = global_sel(idx)
+    d_self = mid.project(pk, sel).double() - tr.project(pk, sel).double()
+    close(w_fwd, d_score - d_self, rtol=1e-5, atol=1e-5)
+    back, w_back, _, _ = mid.edit(R.fold_in(key, 2),
+                                  Update(tr.get_choices().filter(sel)))
+    close(back.get_score(), tr.get_score(), rtol=1e-5)
+    close(w_back, -d_score, rtol=1e-5, atol=1e-5)
+
+
+def _index_request_per_execution(structure, seed):
+    """A per-execution index on a key batch edits each execution as the
+    int index edits it alone (1e-6)."""
+    n, sub_sel, _ = INDEX_CASES[structure]
+    model, args = _make_model(structure, 0.5, (5,))
+    keys = R.split(R.key(seed), 5)
+    ekeys = R.split(R.key(seed + 1), 5)
+    idx = torch.tensor([0, n - 1, 1, n - 2, 0])
+    tr = model.simulate(keys, args)
+    new, w, _, _ = tr.edit(ekeys, g.IndexRequest(idx, Regenerate(sub_sel)))
+    for p in range(5):
+        one_model, one_args = _make_model(structure, 0.5 + (p - 2) * 0.25)
+        one = one_model.simulate(keys[p], one_args)
+        n1, w1, _, _ = one.edit(ekeys[p], g.IndexRequest(
+            int(idx[p]), Regenerate(sub_sel)))
+        close(w[p], w1, rtol=1e-6, atol=1e-6)
+        close(new.get_score()[p], n1.get_score(), rtol=1e-6, atol=1e-6)
+
+
+def _static_request_mix(seed):
+    """A ``StaticRequest`` that regenerates one site and constrains
+    another weighs the score change less the regenerated site's own
+    density change; an ``Update`` with the old values restores."""
+    model, args = _make_model("nested", 0.5)
+    key = R.key(seed)
+    tr = model.simulate(key, args)
+    req = g.StaticRequest({"inner": g.StaticRequest({
+        "a": Regenerate(Selection.all()),
+        "c": Update(g.ChoiceMap.choice(torch.tensor(1.75)))})})
+    mid, w, _, bwd = tr.edit(R.fold_in(key, 1), req)
+    assert isinstance(bwd, g.StaticRequest)
+    d_score = mid.get_score().double() - tr.get_score().double()
+    sel = Selection.at["inner", "a"]
+    pk = R.fold_in(key, 9)
+    d_self = mid.project(pk, sel).double() - tr.project(pk, sel).double()
+    close(w, d_score - d_self, rtol=1e-5, atol=1e-5)
+    assert float(mid.get_choices()["inner", "c"]) == 1.75
+    restore = tr.get_choices().filter(sel | Selection.at["inner", "c"])
+    back, w_back, _, _ = mid.edit(R.fold_in(key, 2), Update(restore))
+    close(back.get_score(), tr.get_score(), rtol=1e-5)
+    close(w_back, -d_score, rtol=1e-5, atol=1e-5)
+
+
+def _diff_annotate(structure, seed):
+    """Marking unchanged arguments as changed is a sound coercion: the
+    annotated ``Update`` of the same choices still weighs 0, and, where
+    no branch index is among the arguments, an annotated empty
+    ``Update`` keeps the score. (A Switch whose index is marked changed
+    serves the index-change path, which draws the branch anew under a
+    partial constraint, in both packages.)"""
+    model, args = _make_model(structure, 0.5)
+    key = R.key(seed)
+    tr = model.simulate(key, args)
+    ann = g.DiffAnnotate(Update(tr.get_choices()),
+                         argdiff_fn=g.Diff.unknown_change)
+    new, w, _, _ = tr.edit(R.fold_in(key, 1), ann)
+    close(w, torch.zeros(()), atol=1e-5)
+    close(new.get_score(), tr.get_score(), rtol=1e-6)
+    if structure in ("switch", "or_else", "mix"):
+        return
+    ann = g.DiffAnnotate(Update(g.ChoiceMap.empty()),
+                         argdiff_fn=g.Diff.unknown_change,
+                         retdiff_fn=g.Diff.no_change)
+    new, w, rd, _ = tr.edit(R.fold_in(key, 2), ann)
+    close(w, torch.zeros(()), atol=1e-5)
+    close(new.get_score(), tr.get_score(), rtol=1e-6)
+    assert g.Diff.static_check_no_change(rd)
+
+
+class TestRequestContracts:
+    """The contract sweep's request cells (IndexRequest on Vmap and Scan,
+    StaticRequest mixes, DiffAnnotate), each parametrised over seeds."""
+
+    @pytest.mark.parametrize("seed", [0, 1, 2])
+    @pytest.mark.parametrize("structure,idx", [("vmap", 0), ("vmap", 2),
+                                               ("scan", 1), ("scan", 3)])
+    def test_index_request(self, structure, idx, seed):
+        _index_request(structure, seed, idx)
+
+    @pytest.mark.parametrize("seed", [0, 1])
+    @pytest.mark.parametrize("structure", sorted(INDEX_CASES))
+    def test_index_request_per_execution(self, structure, seed):
+        _index_request_per_execution(structure, seed)
+
+    @pytest.mark.parametrize("seed", [0, 1, 2])
+    def test_static_request_mix(self, seed):
+        _static_request_mix(seed)
+
+    @pytest.mark.parametrize("seed", [0, 1])
+    @pytest.mark.parametrize("structure", STRUCTURES)
+    def test_diff_annotate(self, structure, seed):
+        _diff_annotate(structure, seed)

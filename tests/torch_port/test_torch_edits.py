@@ -5,8 +5,10 @@ constraints and on concrete and tensor selection flags, ``@gen`` edits
 with discards, dropped and new addresses and changed arguments, and the
 backward request's round trip. The JAX package edits ``@gen`` traces by
 its staged fine-grained path or its coarse handler path
-(``FINE_GRAINED_EDITS``); the port has the coarse path only, and each
-``@gen`` case is held against both settings.
+(``FINE_GRAINED_EDITS``); the port runs its own default, the
+change-tracking fine path (``test_torch_static_edit.py`` holds it
+against its coarse path), and each ``@gen`` case is held against both
+of the JAX package's settings.
 
 Tolerance: weights and scores to 1e-5 relative and 1e-5 absolute, values
 to 1e-5 (the two packages' normals agree to a few ulp and their log and

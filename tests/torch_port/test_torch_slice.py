@@ -30,6 +30,7 @@ from genjax_tpu.inference.smc import (
 )
 from genjax_torch import entry as E
 from genjax_torch.core import random as R
+from genjax_torch.gfi.gfn import IgnoreKwargs
 from genjax_torch.inference import (
     ImportanceK,
     Marginal,
@@ -325,16 +326,38 @@ def test_unported_paths_raise():
     target = Target(model, (2.0, 2.0), gt.C["v"].set(True))
     # ChangeTarget is ported: the estimate is finite. Named distribution
     # parameters are too, and bind to positions; a combinator's named
-    # arguments are not, and raise.
+    # arguments are ignored, as the JAX package's IgnoreKwargs ignores
+    # them: the draws are those of the positional call, bit for bit.
     assert bool(torch.isfinite(
         ImportanceK(target, k_particles=4).estimate_normalizing_constant(
             R.key(0), target)))
     assert gt.normal(loc=0.0, scale=1.0).args == (0.0, 1.0)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        gt.normal.vmap()(torch.zeros(3), scale=torch.ones(3))
+    vm = gt.normal.vmap(in_axes=(0, None))
+    named = vm(torch.zeros(3), 1.0, scale=torch.ones(3))
+    assert isinstance(named.gen_fn, IgnoreKwargs)
+    tr_named = named.simulate(R.key(1))
+    tr_pos = vm(torch.zeros(3), 1.0).simulate(R.key(1))
+    assert torch.equal(tr_named.get_retval(), tr_pos.get_retval())
+    jvm = gj.normal.vmap(in_axes=(0, None))
+    jx = jvm(jnp.zeros(3), 1.0, scale=jnp.ones(3)).simulate(
+        jax.random.key(1)).get_retval()
+    np.testing.assert_allclose(tr_named.get_retval().numpy(), np.asarray(jx),
+                               rtol=1e-5, atol=1e-6)
     marg = Marginal(model, gt.Const(gt.Selection.at["p"]))
     with pytest.raises(TypeError, match="Marginal"):
         Target(marg, (2.0, 2.0), gt.C["v"].set(True))
+    # Still unported: an ADEV site with a non-tail-call strategy inside a
+    # cond with a per-element predicate (``adev/core.py``).
+    from genjax_torch import adev as ta
+
+    @ta.expectation
+    def loss(p):
+        x = ta.normal_reparam(0.0, 1.0)
+        return ta.cond(x > 0, lambda: torch.where(ta.flip_enum(p), 1.0, 0.0),
+                       lambda: torch.zeros(()))
+
+    with pytest.raises(NotImplementedError, match="per-element predicate"):
+        loss.grad_estimate(R.key(2), (0.3,))
 
 
 def test_port_imports_without_jax():
