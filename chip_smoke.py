@@ -1359,6 +1359,9 @@ def mixture_phase(dev, card: str, zero_counts, counts) -> dict:
 #: about 1/sqrt(N_theta) with N_x scaled alike: 0.243 / sqrt(8) = 0.086
 #: at 1024 × 1024, and 0.4 is 4.7 of that sd.
 SMC2_LOGZ_BOUND = 0.4
+#: Config 7's posterior moments of ``a`` against the grid's (the JAX
+#: package's bound, tests/inference/test_smc2.py:61-62).
+SMC2_MOMENT_BOUND = 0.06
 #: Card vs CPU on one key at 64 × 64 × 50: the runs agree to rounding
 #: until an f32 tie parts them, after which they are two estimates with
 #: the 64 × 64 spread above (0.381 each): 1.6 is 3 sd of a difference.
@@ -1415,8 +1418,8 @@ def smc2_phase(dev, card: str, zero_counts, counts) -> dict:
     check(math.isfinite(logz) and err <= SMC2_LOGZ_BOUND,
           f"config 7: log Z {logz} vs the grid's {oracle['log_ev']} (bound "
           f"{SMC2_LOGZ_BOUND})")
-    check(abs(mean - oracle["mean"]) <= 0.06
-          and abs(sd - oracle["std"]) <= 0.06,
+    check(abs(mean - oracle["mean"]) <= SMC2_MOMENT_BOUND
+          and abs(sd - oracle["std"]) <= SMC2_MOMENT_BOUND,
           f"config 7: posterior of a {mean}, {sd} vs the grid's "
           f"{oracle['mean']}, {oracle['std']}")
     check(res.n_rejuvenations >= 1 and 0.0 < acc < 1.0,
@@ -1455,7 +1458,8 @@ def smc2_phase(dev, card: str, zero_counts, counts) -> dict:
            "t2_rows_off": rows_off, "wall_ms": [x * 1e3 for x in walls],
            "inner_particle_steps_per_s": rate, "profiled_wall_ms": p_wall,
            "device_busy_ms": busy, "idle_share": 1.0 - busy / p_wall,
-           "device_ops": ops, "ops_by_module": mods, "peak_gb": peak}
+           "device_ops": ops, "ops_by_module": mods, "peak_gb": peak,
+           "_result": res}
     print(f"[21 config 7] {card}: SMC² {n_theta} x {n_x} x {n_steps}: log Z "
           f"{logz:.5f} vs the grid's {oracle['log_ev']:.5f} (|err| {err:.5f},"
           f" bound {SMC2_LOGZ_BOUND}); a | y: mean {mean:.5f} sd {sd:.5f} vs "
@@ -1542,12 +1546,15 @@ def trace_phase(dev, card: str, zero_counts, counts) -> dict:
     return out
 
 
+#: Phase 23's PGAS (chains, particles, sweeps); phase 31c shards it.
+PGAS_SIZE = (256, 128, 100)
+
+
 def gensp_phase(dev, card: str) -> dict:
     """Phase 23: the GenSP methods and particle Gibbs on the card: a
     Marginal's density estimate with ImportanceK behind ChangeTarget,
     ChangeTarget from the prior to the posterior, and PGAS smoothing of
     config 7's data against the RTS smoother."""
-    import numpy as np
     import torch
 
     import genjax_torch as g
@@ -1589,24 +1596,10 @@ def gensp_phase(dev, card: str) -> dict:
           f"ChangeTarget: posterior mean {p_mean} vs 0.6 (se {p_se})")
     del col, w, p
     # PGAS on config 7's data at a = 0.7: chains x particles x sweeps.
-    n_chains, n_part, n_sweeps = 256, 128, 100
+    n_chains, n_part, n_sweeps = PGAS_SIZE
     ys = E.lgssm_observations(50, device=dev)
     a, q, r = E.SMC2_A, E.SMC2_Q, E.SMC2_R
-    sq = float(np.sqrt(np.float32(q)))
-    sr = float(np.sqrt(np.float32(r)))
-
-    def init_sampler(keys, n):
-        return sq * random.normal(keys, (n,))
-
-    def propagate(keys, xs):
-        return a * xs + sq * random.normal(keys, xs.shape[keys.ndim - 1:])
-
-    def loglik(xs, y):
-        return g.normal.logpdf(y, xs, sr)
-
-    def trans_logpdf(xp, xn):
-        return g.normal.logpdf(xn, a * xp, sq)
-
+    init_sampler, propagate, loglik, trans_logpdf = E.pgas_model()
     run = particle_gibbs(init_sampler, propagate, loglik, n_part, n_sweeps,
                          trans_logpdf=trans_logpdf)
     torch.cuda.synchronize()
@@ -1631,7 +1624,8 @@ def gensp_phase(dev, card: str) -> dict:
            "pgas": {"chains": n_chains, "particles": n_part,
                     "sweeps": n_sweeps, "steps": int(ys.shape[0]),
                     "max_z": float(z.max()), "wall_s": pg_s,
-                    "particle_steps_per_s": steps / pg_s}}
+                    "particle_steps_per_s": steps / pg_s},
+           "_pgas_paths": res.paths}
     print(f"[23 GenSP + particle Gibbs] {card}: Marginal(v) by ImportanceK "
           f"2^16 behind ChangeTarget, {n_keys} keys: mean exp(estimate) "
           f"{d_mean:.6f} vs 0.5 (se {d_se:.3g}, {marg_s:.2f} s); "
@@ -1985,7 +1979,8 @@ def pt_map_phase(dev, card: str, zero_counts, counts) -> dict:
           "wall_ms": [w * 1e3 for w in walls], "replica_steps_per_s": rate,
           "profiled_wall_ms": p_wall, "device_busy_ms": busy,
           "idle_share": 1.0 - busy / p_wall,
-          "device_ops_per_step": ops / p_steps, "peak_gb": peak}
+          "device_ops_per_step": ops / p_steps, "peak_gb": peak,
+          "_result": res}
     print(f"[27 parallel tempering] {card}: config 6's model, {ladders} "
           f"ladders x {rungs} rungs, {burn} + {keep} steps: cold mean "
           f"{m:.5f} vs {exact['mean']:.5f} ({z_m:.2f} MCSE), sd {sd:.5f} vs "
@@ -2070,7 +2065,8 @@ DIST_SIR_REL, DIST_HMM_REL = 1e-5, 1e-6
 
 
 def _dist_measure(label: str, card: str, run, steps: int, work: float,
-                  unit: str, zero_counts, counts, first=None) -> dict:
+                  unit: str, zero_counts, counts, first=None,
+                  phase: str = "28") -> dict:
     """Time ``run(i)`` (a whole run, synchronized) three times, the first
     with the launch counters and the collective log set to 0 just before
     it, and profile one more run: the median wall, the rate (``work``
@@ -2106,7 +2102,7 @@ def _dist_measure(label: str, card: str, run, steps: int, work: float,
            "profiled_wall_ms": p_wall, "device_busy_ms": busy,
            "idle_share": 1.0 - busy / p_wall,
            "device_ops_per_step": ops / steps, "peak_gb": peak}
-    print(f"[28{label}] {card}: wall per run "
+    print(f"[{phase}{label}] {card}: wall per run "
           f"{[round(w * 1e3, 2) for w in walls]} ms (median "
           f"{wall * 1e3:.2f} ms), {work / wall:.6g} {unit}/s; collectives a "
           f"step {by_op}; ring trips {trips}; comm host syncs a step "
@@ -3412,6 +3408,331 @@ def batched_slice_phase(dev, card: str, zero_counts, counts) -> dict:
     return out
 
 
+# -- 31. the sharded samplers, elastic recovery, profiling ---------------------
+
+#: Phase 31's sizes (a CPU rehearsal shrinks them): config 7 sharded
+#: (θ-particles, x-particles, steps); PT's timed and profiled step counts
+#: (its run is PT_SIZE, phase 27's); config 4 under ``run_elastic``
+#: (particles, steps, chunk, checkpoint cadence in chunks, the faulty
+#: step). PGAS is phase 23's PGAS_SIZE.
+SHARDED_SIZE = {"smc2": (1024, 1024, 50), "pt_timed": 20, "pt_profiled": 4,
+                "elastic": (1 << 20, 32, 4, 2, 13), "trace_pf": (1 << 20, 32)}
+#: The group of phase 31: NCCL on the card (a CPU rehearsal takes gloo).
+SHARDED_DEVICE = "cuda"
+#: 31b and 31c: the cold chain's mean and the smoothing means in MCSE
+#: units (phases 27 and 23's bound).
+SHARDED_MCSE_BOUND = 4.0
+#: The Chrome trace's category of a device kernel (31e).
+TRACE_KERNEL_CAT = "kernel"
+#: 31d: the elastic run's log Z against ``build_pf``'s on the same key
+#: (config 4's driver bound, PERF.md §2).
+ELASTIC_LOGZ_BOUND = 0.25
+
+
+def _same(a, b) -> bool:
+    """Bit for bit, NaN where NaN."""
+    import torch
+
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return (torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+    return torch.equal(a, b)
+
+
+def sharded_samplers_phase(dev, card: str, zero_counts, counts,
+                           refs: dict) -> dict:
+    """Phase 31, in an NCCL world of one opened and closed here: SMC² with
+    its θ-lanes sharded (31a), PT with its rungs sharded (31b) and PGAS
+    with its chains sharded (31c), each bit for bit the unsharded run of
+    phases 21, 27 and 23 on the same key (``refs``); config 4 under
+    ``run_elastic`` with DCP checkpoints and one injected NaN (31d); a
+    ``profile_trace`` of ``build_pf`` (31e)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from genjax_torch import entry as E
+    from genjax_torch import models as M
+    from genjax_torch import parallel as P
+    from genjax_torch.core import random
+    from genjax_torch.inference.smc2 import smc2 as smc2_fn
+    from genjax_torch.utils import (
+        profile_trace,
+        restore_checkpoint,
+        run_elastic,
+        save_checkpoint,
+    )
+
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="genjax_31_")
+    backend = "nccl" if SHARDED_DEVICE == "cuda" else "gloo"
+    P.init_distributed(num_processes=1, init_method=f"file://{tmp}/store",
+                       device=SHARDED_DEVICE)
+    out = {}
+    try:
+        check(dist.get_backend() == backend, f"phase 31: the group's "
+              f"backend is {dist.get_backend()}, not {backend}")
+        mesh = P.particle_mesh(SHARDED_DEVICE)
+
+        # -- 31a. config 7 with its θ-lanes sharded --------------------------
+        n_theta, n_x, n_steps = SHARDED_SIZE["smc2"]
+        run_a, oracle, _ = E.build_sharded_smc2(n_theta, n_x, n_steps,
+                                                device=dev)
+        smc2_fn.host_syncs = 0
+        res = _dist_measure(
+            "a sharded SMC²", card, lambda i: run_a(random.key(
+                1 if i == 0 else 10 + i, device=dev)), n_steps,
+            n_theta * n_x * n_steps, "inner_particle_steps", zero_counts,
+            counts, phase="31")
+        got, want = res.pop("result"), refs["smc2"]
+        for f in ("thetas", "log_weights", "log_z", "ess_history",
+                  "rejuv_accept"):
+            check(_same(getattr(got, f), getattr(want, f)),
+                  f"31a: {f} differs from build_smc2's on the same key")
+        check(got.n_rejuvenations == want.n_rejuvenations,
+              f"31a: {got.n_rejuvenations} rejuvenations, build_smc2 "
+              f"{want.n_rejuvenations}")
+        logz = float(got.log_z)
+        w = torch.softmax(got.log_weights.double(), 0)
+        th = got.thetas.double()
+        mean = float((w * th).sum())
+        sd = math.sqrt(float((w * (th - mean) ** 2).sum()))
+        check(abs(logz - oracle["log_ev"]) <= SMC2_LOGZ_BOUND
+              and abs(mean - oracle["mean"]) <= SMC2_MOMENT_BOUND
+              and abs(sd - oracle["std"]) <= SMC2_MOMENT_BOUND,
+              f"31a: log Z {logz}, a | y {mean} {sd} vs the grid's {oracle}")
+        _no_kernel(res["launches"], "31a (sharded SMC²)")
+        # Four runs (three timed, one profiled), n_steps - 1 ESS reads each.
+        syncs = smc2_fn.host_syncs / 4
+        check(syncs == n_steps - 1, f"31a: {syncs} ESS host syncs a run")
+        out["smc2"] = {**res, "log_z": logz, "log_ev": oracle["log_ev"],
+                       "theta_mean": mean, "theta_sd": sd,
+                       "rejuvenations": got.n_rejuvenations,
+                       "ess_host_syncs": syncs, "bitwise": True}
+        print(f"[31a sharded SMC²] {card}: {n_theta} x {n_x} x {n_steps}, "
+              f"world of {dist.get_world_size()}: bit for bit build_smc2 on "
+              f"key 1 (θs, weights, log Z {logz:.5f}, ESS history, "
+              f"acceptance, {got.n_rejuvenations} rejuvenations); grid "
+              f"{oracle['log_ev']:.5f}; {syncs:.0f} ESS host syncs a run",
+              flush=True)
+        del got, res
+
+        # -- 31b. parallel tempering with its rungs sharded ------------------
+        ladders, rungs, keep, burn = PT_SIZE
+        run_b, exact = E.build_sharded_pt(ladders, rungs, keep, burn,
+                                          device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        zero_counts()
+        P.comm.reset()
+        t0 = time.perf_counter()
+        got = run_b(random.key(1, device=dev))
+        torch.cuda.synchronize()
+        pt_wall = time.perf_counter() - t0
+        launches = counts()
+        by_op = {k: {f: v[f] / (keep + burn) for f in v}
+                 for k, v in P.comm.by_op().items()}
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        want = refs["pt"]
+        for f in ("samples", "swap_rate", "accept_rate"):
+            check(_same(getattr(got, f), getattr(want, f)),
+                  f"31b: {f} differs from build_pt's on the same key")
+        check(_same(got.traces.get_choices()["mu"],
+                    want.traces.get_choices()["mu"]),
+              "31b: the final replicas differ from build_pt's")
+        _no_kernel(launches, "31b (sharded PT)")
+        s = got.samples.double().cpu()
+        m = float(s.mean())
+        mcse_m = float(s.mean(1).std() / math.sqrt(ladders))
+        z_m = abs(m - exact["mean"]) / mcse_m
+        check(z_m <= SHARDED_MCSE_BOUND, f"31b: cold mean {m} vs {exact['mean']} ({z_m:.2f}"
+              " MCSE)")
+        t_steps, p_steps = SHARDED_SIZE["pt_timed"], SHARDED_SIZE[
+            "pt_profiled"]
+        run_t = E.build_sharded_pt(ladders, rungs, t_steps, 0, device=dev)[0]
+        walls, wall = _median_wall(None, lambda i: run_t(
+            random.key(10 + i, device=dev)))
+        rate = ladders * rungs * t_steps / wall
+        run_p = E.build_sharded_pt(ladders, rungs, p_steps, 0, device=dev)[0]
+        run_p(random.key(20, device=dev))
+        p_wall, busy, ops = device_busy(lambda: run_p(random.key(
+            21, device=dev)))
+        out["pt"] = {"ladders": ladders, "rungs": rungs, "steps": keep,
+                     "burn_in": burn, "mean": m, "z_mean": z_m,
+                     "bitwise": True, "launches": launches,
+                     "run_s": pt_wall, "timed_steps": t_steps,
+                     "wall_ms": [x * 1e3 for x in walls],
+                     "replica_steps_per_s": rate,
+                     "collectives_per_step": by_op,
+                     "profiled_wall_ms": p_wall, "device_busy_ms": busy,
+                     "idle_share": 1.0 - busy / p_wall,
+                     "device_ops_per_step": ops / p_steps, "peak_gb": peak}
+        print(f"[31b sharded PT] {card}: {ladders} ladders x {rungs} rungs, "
+              f"{burn} + {keep} steps: bit for bit build_pt on key 1 "
+              f"(samples, swap and MH rates, replicas); cold mean {m:.5f} "
+              f"({z_m:.2f} MCSE); run {pt_wall:.2f} s; {t_steps}-step runs "
+              f"{[round(x * 1e3, 1) for x in walls]} ms (median "
+              f"{wall * 1e3:.1f} ms), {rate:.6g} replica-steps/s; profiled "
+              f"{p_steps}-step run {p_wall:.1f} ms, device busy {busy:.3f} "
+              f"ms, idle share {out['pt']['idle_share']:.4f}, "
+              f"{ops / p_steps:.0f} device ops a step; collectives a step "
+              f"{by_op}; peak {peak:.3f} GB", flush=True)
+        del got
+
+        # -- 31c. PGAS with its chains sharded -------------------------------
+        n_chains, n_part, n_sweeps = PGAS_SIZE
+        run_c, ys = E.build_sharded_pgibbs(n_chains, n_part, 50, n_sweeps,
+                                           device=dev)
+        zero_counts()
+        P.comm.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run_c(random.key(3, device=dev))
+        torch.cuda.synchronize()
+        pg_s = time.perf_counter() - t0
+        launches = counts()
+        check(_same(got.paths, refs["pgas_paths"]),
+              "31c: the paths differ from phase 23's")
+        _no_kernel(launches, "31c (sharded PGAS)")
+        means = P.pooled_chain_means(got.paths, mesh,
+                                     burn_in=n_sweeps // 5).cpu()
+        _, mus, _ = M.kalman_smoother(ys.double().cpu(), E.SMC2_A, E.SMC2_Q,
+                                      E.SMC2_R, mu0=0.0, p0=0.0)
+        z = (means.mean(0) - mus).abs() / (means.std(0)
+                                           / math.sqrt(n_chains))
+        check(bool((z <= SHARDED_MCSE_BOUND).all()), f"31c: smoothing means "
+              f"{float(z.max())} MCSE from the RTS smoother")
+        steps_c = n_chains * n_part * int(ys.shape[0]) * n_sweeps
+        out["pgas"] = {"chains": n_chains, "particles": n_part,
+                       "sweeps": n_sweeps, "bitwise": True,
+                       "max_z": float(z.max()), "wall_s": pg_s,
+                       "particle_steps_per_s": steps_c / pg_s,
+                       "collectives": P.comm.by_op(), "launches": launches}
+        print(f"[31c sharded PGAS] {card}: {n_chains} chains x {n_part} x "
+              f"{int(ys.shape[0])} steps x {n_sweeps} sweeps: bit for bit "
+              f"phase 23's paths; smoothing means within {float(z.max()):.2f}"
+              f" MCSE of the RTS smoother; {pg_s:.2f} s, "
+              f"{steps_c / pg_s:.6g} particle-steps/s", flush=True)
+        del got
+
+        # -- 31d. config 4 under run_elastic, DCP checkpoints ----------------
+        n, steps, chunk, every, fault_at = SHARDED_SIZE["elastic"]
+        make = E.build_elastic_pf(n, steps, device=dev)
+
+        def place(st, devs):
+            return {**st, "fault": torch.zeros_like(st["fault"])}
+
+        step, state0, log_z_of = make(random.key(5, device=dev))
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clean = run_elastic(step, state0, steps,
+                            ckpt_path=os.path.join(tmp, "clean"),
+                            chunk=chunk, checkpoint_every=every)
+        torch.cuda.synchronize()
+        clean_s = time.perf_counter() - t0
+        clean_launches = counts()
+        step_f, state_f, _ = make(random.key(5, device=dev),
+                                  fault_at=fault_at)
+        zero_counts()
+        t0 = time.perf_counter()
+        hurt = run_elastic(step_f, state_f, steps,
+                           ckpt_path=os.path.join(tmp, "hurt"), chunk=chunk,
+                           checkpoint_every=every, place=place)
+        torch.cuda.synchronize()
+        hurt_s = time.perf_counter() - t0
+        hurt_launches = counts()
+        kinds = [e.kind for e in hurt.events]
+        resumed = chunk * every * ((fault_at // chunk * chunk)
+                                   // (chunk * every))
+        check(clean.events == [] and kinds == ["nonfinite"]
+              and hurt.events[0].resumed_from == resumed,
+              f"31d: events {clean.events} / {hurt.events}")
+        for k in ("xs", "lw", "log_z"):
+            check(_same(hurt.state[k], clean.state[k]),
+                  f"31d: {k} after recovery differs from the clean run's")
+        lz = float(log_z_of(clean.state))
+        ref_pf = float(E.build_pf(n, steps, device=dev)[0](
+            random.key(5, device=dev)))
+        check(math.isfinite(lz) and abs(lz - ref_pf) <= ELASTIC_LOGZ_BOUND,
+              f"31d: log Z {lz} vs build_pf {ref_pf}")
+        check(clean_launches["cdf_counts"] >= 1
+              and hurt_launches["cdf_counts"] >= 1,
+              f"31d: CDF launches {clean_launches} / {hurt_launches}")
+        ck = os.path.join(tmp, "timed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(ck, clean.state)
+        torch.cuda.synchronize()
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = restore_checkpoint(ck, clean.state)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        check(all(_same(back[k], clean.state[k]) for k in back),
+              "31d: the restored state differs")
+        state_bytes = sum(v.numel() * v.element_size()
+                          for v in clean.state.values())
+        disk_bytes = sum(os.path.getsize(os.path.join(ck, f))
+                         for f in os.listdir(ck))
+        out["elastic"] = {
+            "particles": n, "steps": steps, "chunk": chunk,
+            "checkpoint_every": every, "fault_at": fault_at,
+            "events": [vars(e) for e in hurt.events], "log_z": lz,
+            "build_pf_log_z": ref_pf, "clean_s": clean_s, "hurt_s": hurt_s,
+            "clean_launches": clean_launches,
+            "hurt_launches": hurt_launches, "save_ms": save_ms,
+            "restore_ms": restore_ms, "state_bytes": state_bytes,
+            "checkpoint_disk_bytes": disk_bytes}
+        print(f"[31d elastic config 4] {card}: {n} x {steps}, chunk {chunk}, "
+              f"a DCP checkpoint every {every} chunks; a NaN at step "
+              f"{fault_at}: events {kinds}, resumed from step "
+              f"{hurt.events[0].resumed_from}, final state bit for bit the "
+              f"clean run's; log Z {lz:.5f} vs build_pf {ref_pf:.5f} (bound "
+              f"{ELASTIC_LOGZ_BOUND}); clean {clean_s:.2f} s, recovered "
+              f"{hurt_s:.2f} s; CDF launches {clean_launches['cdf_counts']} / "
+              f"{hurt_launches['cdf_counts']}; save {save_ms:.1f} ms, restore "
+              f"{restore_ms:.1f} ms of {state_bytes} B ({disk_bytes} B on "
+              f"disk)", flush=True)
+        del clean, hurt, back
+
+        # -- 31e. a Chrome trace of build_pf ---------------------------------
+        n_pf, steps_pf = SHARDED_SIZE["trace_pf"]
+        run_pf, _ = E.build_pf(n_pf, steps_pf, device=dev)
+        run_pf(random.key(6, device=dev))
+        for attempt in range(1, 4):
+            d = os.path.join(tmp, f"trace{attempt}")
+            with profile_trace(d):
+                run_pf(random.key(7, device=dev))
+            with open(os.path.join(d, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = sum(1 for e in events
+                          if e.get("cat") == TRACE_KERNEL_CAT)
+            if kernels:
+                break
+            print(f"[profiler] trace {attempt} of 3 holds no device kernel",
+                  flush=True)
+        check(kernels >= 1, "31e: no device kernel in three traces")
+        out["trace"] = {"attempts": attempt, "events": len(events),
+                        "kernel_events": kernels}
+        print(f"[31e profile_trace] {card}: build_pf {n_pf} x {steps_pf}: "
+              f"{len(events)} trace events, {kernels} device kernels "
+              f"(try {attempt})", flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_start
+    print(f"[31] {card}: phase 31 in {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4219,6 +4540,14 @@ def main() -> int:
 
     # -- 30. per-execution HMM problems and edits, fine-grained edits ------
     slice30 = batched_slice_phase(dev, card, zero_counts, counts)
+
+    # -- 31. sharded SMC², PT and PGAS; elastic recovery; profile_trace ----
+    shard31 = sharded_samplers_phase(dev, card, zero_counts, counts, {
+        "smc2": config7.pop("_result"), "pt": pt_map["pt"].pop("_result"),
+        "pgas_paths": gensp.pop("_pgas_paths")})
+    el31 = shard31["elastic"]
+    cdf31 = (el31["clean_launches"]["cdf_counts"]
+             + el31["hurt_launches"]["cdf_counts"])
     hb30 = slice30["hmm_batch"]
     lm_batch = sum(hb30[k]["launches"]["log_matmul"]
                    for k in ("observations", "observations_and_config"))
@@ -4235,7 +4564,8 @@ def main() -> int:
                       + mixture["sir_launches"]["cdf_counts"]
                       + trace_level["trace_pf"]["launches"]["cdf_counts"]
                       + trace_level["data_smc"]["launches"]["cdf_counts"]
-                      + base28["cdf_counts"] + gp29["cdf_counts"]),
+                      + base28["cdf_counts"] + gp29["cdf_counts"]
+                      + cdf31),
          "launches_by_run": {
              **{k: v["cdf_counts"] for k, v in by_run.items()},
              "config_4_path": launches["cdf_counts"],
@@ -4250,7 +4580,8 @@ def main() -> int:
              "build_data_smc": trace_level["data_smc"]["launches"][
                  "cdf_counts"],
              "build_sharded_pf_baseline": base28["cdf_counts"],
-             "build_gamma_poisson_sir": gp29["cdf_counts"]},
+             "build_gamma_poisson_sir": gp29["cdf_counts"],
+             "build_elastic_pf": cdf31},
          "max_abs_err": cdf_err,
          "ms": cdf_ms, "plain_ms": cdf_plain_ms,
          "bound_ms": cdf_bound, "bound_by": cdf_by, "library_ms": None,
@@ -4313,7 +4644,7 @@ def main() -> int:
         "config_9": config9, "config_10": config10,
         "parallel_tempering": pt_map["pt"],
         "map_laplace": pt_map["map_laplace"], "distributed": dist28,
-        **dist29, "batched_slice": slice30}
+        **dist29, "batched_slice": slice30, "sharded_samplers": shard31}
     print(card, flush=True)
     print(json.dumps(finite_or_none(record)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,13 +26,16 @@ from genjax_torch.core.compiler.interpreters.incremental import (
     NoChange,
     UnknownChange,
 )
+from genjax_torch.core.checks import do_checkify, optional_check
 from genjax_torch.core.compiler.staging import (
     FlagOp,
     empty_trace,
+    empty_value,
     multi_switch,
+    to_shape_fn,
     tree_choose,
 )
-from genjax_torch.core.pytree import Closure, Const, Pytree
+from genjax_torch.core.pytree import Closure, Const, Pytree, PythonicPytree
 from genjax_torch.gfi.choice_map import (
     C,
     ChoiceMap,
@@ -89,7 +92,7 @@ from genjax_torch.lang.combinators import (
     vmap,
 )
 from genjax_torch.core import random  # noqa: E402
-from genjax_torch import adev, inference, models, ops, parallel  # noqa: E402,F401
+from genjax_torch import adev, inference, models, ops, parallel, utils  # noqa: E402,F401,E501
 from genjax_torch.inference import (  # noqa: E402
     HMC,
     MALA,
@@ -108,7 +111,8 @@ _ENTRY_POINTS = ("build_nuts_regression", "build_nuts_logreg",
                  "build_slds_rbpf", "build_switch_mixture", "build_smc2",
                  "build_trace_pf", "build_data_smc", "build_adev_vi",
                  "build_bnn_vi", "build_svgd", "build_pt",
-                 "build_map_laplace")
+                 "build_map_laplace", "build_sharded_smc2",
+                 "build_sharded_pt", "build_sharded_pgibbs")
 
 
 def __getattr__(name):
@@ -132,6 +136,7 @@ __all__ = [
     "ChoiceMapBuilder",
     "ChoiceMapNoValueAtAddress",
     "Closure",
+    "PythonicPytree",
     "Const",
     "Diff",
     "DiffAnnotate",
@@ -173,7 +178,11 @@ __all__ = [
     "build_nuts_regression",
     "build_slds_rbpf",
     "build_switch_mixture",
+    "do_checkify",
     "empty_trace",
+    "empty_value",
+    "optional_check",
+    "to_shape_fn",
     "ess_autocorr",
     "gen",
     "adev",
@@ -186,6 +195,7 @@ __all__ = [
     "nuts_kernel",
     "ops",
     "parallel",
+    "utils",
     "or_else",
     "random",
     "reduce",

@@ -47,9 +47,12 @@ gives only its lane shape.
 Control flow. A Python loop's sites are sequential sites, each with a
 fresh key. :func:`cond` is the counterpart of ``lax.cond`` with sample
 sites: a Python predicate picks a branch; a tensor predicate runs both
-branches, each on its own key, and selects per element, which is valid
-for tail-call sites only (others raise, as the JAX package raises for
-such sites inside a scan).
+branches, each on its own key, and selects per element. When a branch
+holds a non-tail-call site (enumeration, REINFORCE, MVD), whose
+continuation is the rest of its branch and then the program after the
+cond, the program runs on once through each branch from there and each
+execution takes its own branch's estimate, as ``jax.vmap`` of the JAX
+package's ``lax.switch`` of CPS branches does.
 
 ``Expectation.grad_estimate`` takes the gradient in one forward and one
 backward pass: the tangent inputs are zero tensors that require grad,
@@ -411,24 +414,35 @@ class _Finished(BaseException):
         self.value = value
 
 
+class _SplitCond(BaseException):
+    """Unwinds a run from a non-tail-call site inside the branches of a
+    per-element :func:`cond` to that cond, which then runs the program
+    on once through each branch (a ``BaseException``, so that no
+    ``except Exception`` of the program catches it)."""
+
+
 class _Run:
     """One run of an ADEV program. ``replay`` holds the values of its
     first sites; the site after them is the first live one, and ``key``
     is the interpreter's key from there on. ``dual`` runs with tangents
     (the dual continuation and the top-level run), otherwise on the
-    primals (the pure continuation)."""
+    primals (the pure continuation). ``forced`` maps a cond's ordinal in
+    the run to the branch every execution takes there (see
+    :meth:`cond`)."""
 
     def __init__(self, program: Callable, args: tuple, key, replay: list,
-                 dual: bool, batch: tuple):
+                 dual: bool, batch: tuple, forced: dict | None = None):
         self.program = program
         self.args = args
         self.key = key
         self.replay = replay
         self.dual = dual
         self.batch = batch
+        self.forced = {} if forced is None else forced
         self.values: list = []
         self.cost = None
         self.in_cond = 0
+        self.n_conds = 0
 
     def __call__(self):
         _RUNS[0] += 1
@@ -484,43 +498,87 @@ class _Run:
             self.key, _ = random.split(self.key).unbind(-2)
             return self._record(_from_dual(d))
         if self.in_cond:
-            raise NotImplementedError(
-                f"ADEV primitive {type(prim).__name__} inside a cond with a "
-                "per-element predicate: only tail-call (reparameterized) "
-                "sites may run in both branches; branch on a Python "
-                "predicate or hoist the site out of the cond")
+            # Both branches of a per-element cond are running: this
+            # site's continuation must be the rest of ITS branch, so the
+            # cond takes each branch in its own run.
+            raise _SplitCond()
         prefix = list(self.values)
         primal_args = tree_map(_primal, self.args)
 
         def kdual(key, value) -> Dual:
             v = _from_dual(Dual.tree_pure(value))
             out = _Run(self.program, self.args, key, prefix + [v], True,
-                       self.batch)()
+                       self.batch, self.forced)()
             return _to_dual(out)
 
         def kpure(key, value):
             v = _primal(_from_dual(Dual.tree_pure(value)))
             return _Run(self.program, primal_args, key,
                         [_primal(x) for x in prefix] + [v], False,
-                        self.batch)()
+                        self.batch, self.forced)()
 
         d = prim.jvp_estimate(self.key, dual_args, (kpure, kdual))
         raise _Finished(self, _from_dual(d))
 
     def cond(self, pred, true_fun, false_fun, operands):
-        if not self._live():
+        ordinal = self.n_conds
+        self.n_conds += 1
+        live = self._live()
+        if ordinal in self.forced:
+            # Every execution takes this branch in this run (a run that
+            # a split below started, or one of its continuations).
+            taken = self.forced[ordinal]
+            if not live:
+                return (true_fun if taken else false_fun)(*operands)
+            branch_key, kont_key = random.split(self.key).unbind(-2)
+            self.key = random.fold_in(branch_key, 0 if taken else 1)
+            out = (true_fun if taken else false_fun)(*operands)
+            self.key = kont_key
+            return out
+        if not live:
             return _select(pred, true_fun(*operands), false_fun(*operands))
+        entry = (len(self.values), self.key, self.cost)
         branch_key, kont_key = random.split(self.key).unbind(-2)
+        outermost, split = self.in_cond == 0, False
         self.in_cond += 1
         try:
             self.key = random.fold_in(branch_key, 0)
             a = true_fun(*operands)
             self.key = random.fold_in(branch_key, 1)
             b = false_fun(*operands)
+        except _SplitCond:
+            if not outermost:
+                raise
+            split = True
         finally:
             self.in_cond -= 1
+        if split:
+            self._split(ordinal, pred, entry)
         self.key = kont_key
         return _select(pred, a, b)
+
+    def _split(self, ordinal: int, pred, entry):
+        """A branch of the live cond ``ordinal`` holds a non-tail-call
+        site. What ``jax.vmap`` of the JAX package's ``lax.switch`` of CPS
+        branches computes: each execution's estimate of the whole program
+        through its own branch. So the program runs on twice from this
+        cond, every execution through the true branch and then through
+        the false one (the sites before the cond replayed, its branch
+        keys as above), and each execution takes its own branch's
+        value; the run ends here with it."""
+        n, key, cost = entry
+        del self.values[n:]
+        self.key, self.cost = key, cost
+        if pred.ndim > len(self.batch):
+            raise NotImplementedError(
+                "ADEV: a cond whose branches hold a non-tail-call site "
+                f"takes one predicate per execution (batch {self.batch}), "
+                f"not one of shape {tuple(pred.shape)}")
+        outs = [_Run(self.program, self.args, key, list(self.values),
+                     self.dual, self.batch,
+                     {**self.forced, ordinal: taken})()
+                for taken in (True, False)]
+        raise _Finished(self, _select(pred, *outs))
 
 
 def _select(pred, a, b):
@@ -552,7 +610,9 @@ def cond(pred, true_fun: Callable, false_fun: Callable, *operands):
     """``lax.cond`` for programs with sample sites. A Python predicate
     runs one branch. A tensor predicate (one per execution, or per
     element) runs both branches, each on its own key under ADEV, and
-    selects elementwise; their sites must be tail-call sites."""
+    selects elementwise. Where a branch holds a non-tail-call site the
+    predicate is one per execution, and the program after the cond runs
+    on through each branch (``_Run._split``)."""
     if isinstance(pred, (bool, int)):
         return (true_fun if pred else false_fun)(*operands)
     pred = torch.as_tensor(pred).to(torch.bool)

@@ -1,19 +1,22 @@
-"""Concrete-flag boolean ops, pytree selection and zero traces
-(counterpart of ``genjax_tpu/core/compiler/staging.py``, data types only).
+"""Concrete-flag boolean ops, pytree selection, shape evaluation and
+zero traces (counterpart of ``genjax_tpu/core/compiler/staging.py``,
+without its jaxpr staging).
 
 PyTorch runs eagerly, so there is no program to stage: ``FlagOp`` keeps
 its Python-bool short cuts and a tensor flag becomes ``torch`` logic; a
 switch on a tensor index runs every branch and selects, which is what
-JAX's ``switch`` does under ``vmap``.
+JAX's ``switch`` does under ``vmap``. ``jax.eval_shape`` becomes a run on
+``meta`` tensors, which carry shapes and dtypes and do no work.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Sequence
 
 import torch
 
-from genjax_torch.core.pytree import tree_map
+from genjax_torch.core.pytree import tree_leaves, tree_map
 from genjax_torch.core.typing import Flag
 
 __all__ = [
@@ -21,6 +24,8 @@ __all__ = [
     "tree_choose",
     "tree_where",
     "multi_switch",
+    "to_shape_fn",
+    "empty_value",
     "empty_trace",
 ]
 
@@ -135,10 +140,47 @@ def multi_switch(idx, branches: Sequence[Callable],
     return outs
 
 
+def to_shape_fn(fn: Callable, fill: Callable | None = None) -> Callable:
+    """Wrap ``fn`` so that it evaluates shapes only: it runs on ``meta``
+    copies of its tensor arguments, with ``meta`` the default device of
+    the tensors it makes (no data, no work), and returns
+    ``meta`` tensors, the counterpart of ``jax.eval_shape``'s
+    ``ShapeDtypeStruct``s; with ``fill``, each becomes ``fill(shape,
+    dtype)``. A Python number in the output counts as a 0-d tensor of its
+    default dtype. ``fn`` must not read a value back (``bool`` of a
+    tensor, ``.item()``), which a ``meta`` tensor cannot give."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        meta_args, meta_kwargs = tree_map(
+            lambda v: torch.empty_like(v, device="meta")
+            if isinstance(v, torch.Tensor) else v, (args, kwargs))
+        with torch.device("meta"):  # the body's own constants too
+            out = fn(*meta_args, **meta_kwargs)
+        shapes = tree_map(lambda v: v if isinstance(v, torch.Tensor)
+                          else torch.empty_like(torch.as_tensor(v),
+                                                device="meta"), out)
+        if fill is None:
+            return shapes
+        return tree_map(lambda v: fill(tuple(v.shape), v.dtype), shapes)
+
+    return wrapped
+
+
+def empty_value(fn: Callable, *args, **kwargs):
+    """A zero-filled pytree of ``fn(*args)``'s output structure, on the
+    device of the first tensor argument (the CPU without one)."""
+    dev = next((v.device for v in tree_leaves((args, kwargs))
+                if isinstance(v, torch.Tensor)), None)
+    return to_shape_fn(fn, lambda shape, dtype: torch.zeros(
+        shape, dtype=dtype, device=dev))(*args, **kwargs)
+
+
 def empty_trace(gen_fn, args: tuple):
     """A zero-filled trace for ``gen_fn`` on ``args``: one simulate whose
-    tensors are then zeroed (there is no shape-only evaluation in eager
-    PyTorch)."""
+    tensors are then zeroed. Not :func:`to_shape_fn`: a ``meta`` run
+    cannot take the rejection loops of the gamma family, which read a
+    flag back on the host each trip."""
     from genjax_torch.core import random
 
     tr = gen_fn.simulate(random.key(0), args)

@@ -23,6 +23,7 @@ __all__ = [
     "Pytree",
     "Const",
     "Closure",
+    "PythonicPytree",
     "tree_map",
     "tree_leaves",
     "tree_flatten",
@@ -76,9 +77,15 @@ def _register_dataclass(dcls: type, data_names: list, static_names: list):
             object.__setattr__(obj, n, v)
         return obj
 
+    def flatten_with_keys(obj):
+        children, context = flatten(obj)
+        return ([(tpu_tree.GetAttrKey(n), c)
+                 for n, c in zip(data_names, children)], context)
+
     tpu_tree.register_pytree_node(
         dcls, flatten, unflatten,
         serialized_type_name=f"{dcls.__module__}.{dcls.__qualname__}",
+        flatten_with_keys_fn=flatten_with_keys,
     )
 
 
@@ -124,8 +131,40 @@ class Pytree:
     def const(v: T) -> "Const[T]":
         return Const(v)
 
+    @staticmethod
+    def tree_const(v: Any) -> Any:
+        """Wrap every leaf of ``v`` in :class:`Const`."""
+        return tree_map(Const, v)
+
+    @staticmethod
+    def tree_const_unwrap(v: Any) -> Any:
+        """Unwrap every :class:`Const` leaf of ``v``."""
+        return tree_map(lambda x: x.value if isinstance(x, Const) else x, v,
+                        is_leaf=lambda x: isinstance(x, Const))
+
+    @staticmethod
+    def partial(*args) -> Callable[[Callable[..., R]], "Closure[R]"]:
+        """Decorator building a :class:`Closure` over dynamic ``args``."""
+
+        def wrap(fn: Callable[..., R]) -> Closure[R]:
+            return Closure(args, fn)
+
+        return wrap
+
     def replace(self, **updates):
         return dataclasses.replace(self, **updates)
+
+    def render_html(self) -> str:
+        """Collapsible HTML (``utils.pretty.render_html``)."""
+        from genjax_torch.utils.pretty import render_html
+
+        return render_html(self)
+
+    def pformat(self) -> str:
+        """Text rendering (``utils.pretty.pformat``)."""
+        from genjax_torch.utils.pretty import pformat
+
+        return pformat(self)
 
     def __repr__(self) -> str:
         if dataclasses.is_dataclass(self):
@@ -170,6 +209,27 @@ class Closure(Pytree, Generic[R]):
 
     def __call__(self, *args, **kwargs) -> R:
         return self.fn(*self.dyn_args, *args, **kwargs)
+
+
+class PythonicPytree(Pytree):
+    """Pytree base with leafwise sugar: indexing, ``len``, iteration and
+    ``+`` as concatenation along the leading axis."""
+
+    def __getitem__(self, idx):
+        return tree_map(lambda v: v[idx], self)
+
+    def __len__(self):
+        leaves = tree_leaves(self)
+        if not leaves:
+            return 0
+        return len(leaves[0])
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    def __add__(self, other):
+        return tree_map(lambda a, b: torch.cat([a, b], dim=0), self, other)
 
 
 def ravel_pytree(tree: Any, batch_rank: int = 0):

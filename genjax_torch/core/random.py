@@ -115,10 +115,12 @@ def _hash(k: torch.Tensor, lo: torch.Tensor):
     return threefry2x32(k0, k1, torch.zeros_like(lo), lo)
 
 
-def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
+def split(k: torch.Tensor, num: int = 2, offset: int = 0) -> torch.Tensor:
     """``jax.random.split``: ``B + (2,)`` keys -> ``B + (num, 2)``. Unpack
-    with ``.unbind(-2)``."""
-    lo = torch.arange(num, dtype=torch.int64, device=k.device)
+    with ``.unbind(-2)``. ``offset``: keys ``[offset, offset + num)`` of a
+    larger split, bit for bit (a rank's rows of ``split(k, n)``)."""
+    lo = torch.arange(offset, offset + num, dtype=torch.int64,
+                      device=k.device)
     y0, y1 = _hash(k, lo)
     return torch.stack([y0, y1], dim=-1)
 
@@ -133,14 +135,18 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def bits(k: torch.Tensor, shape=()) -> torch.Tensor:
+def bits(k: torch.Tensor, shape=(), offset: int = 0) -> torch.Tensor:
     """``jax.random.bits`` (32-bit) per key: int64 words of shape
-    ``B + shape``."""
+    ``B + shape``. ``offset``: the draw's counters start there, so
+    ``bits(k, (r,) + rest, offset=lo * prod(rest))`` is bit for bit rows
+    ``[lo, lo + r)`` of ``bits(k, (n,) + rest)`` (a rank's slice of a
+    one-key grid draw, made without drawing the rest)."""
     shape = tuple(shape)
     size = math.prod(shape)
-    if size >= 1 << 32:
+    if offset + size >= 1 << 32:
         raise NotImplementedError("bits beyond 2^32 elements per key")
-    lo = torch.arange(size, dtype=torch.int64, device=k.device).reshape(shape)
+    lo = torch.arange(offset, offset + size, dtype=torch.int64,
+                      device=k.device).reshape(shape)
     y0, y1 = _hash(k, lo)
     return y0 ^ y1
 
@@ -156,13 +162,14 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(k: torch.Tensor, shape=(), dtype=torch.float32, minval=0.0,
-            maxval=1.0) -> torch.Tensor:
+            maxval=1.0, offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform`` for f32: the top 23 bits become the
     mantissa of a float in [1, 2), minus one, then scaled and shifted in
-    one fused multiply-add and clamped below."""
+    one fused multiply-add and clamped below. ``offset`` as in
+    :func:`bits`."""
     if dtype != torch.float32:
         raise NotImplementedError("uniform: only float32")
-    b = bits(k, shape)
+    b = bits(k, shape, offset)
     fbits = ((b >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
     lo = _f32(minval, k.device)
@@ -274,10 +281,11 @@ def log1p_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < _LOG1P_SMALL, small, large)
 
 
-def exponential(k: torch.Tensor, shape=()) -> torch.Tensor:
+def exponential(k: torch.Tensor, shape=(), offset: int = 0) -> torch.Tensor:
     """``jax.random.exponential``: ``-log1p(-u)``, ``u`` uniform on [0, 1);
-    bit for bit on the CPU (:func:`log1p_f32`)."""
-    return -log1p_f32(-uniform(k, shape))
+    bit for bit on the CPU (:func:`log1p_f32`). ``offset`` as in
+    :func:`bits`."""
+    return -log1p_f32(-uniform(k, shape, offset=offset))
 
 
 def gumbel(k: torch.Tensor, shape=()) -> torch.Tensor:

@@ -1596,3 +1596,150 @@ def build_sharded_svgd(n_particles: int = 4096, n_steps: int = 600,
         return finish(xs)["w"]
 
     return run, target, blr_exact(x, y)
+
+
+def build_sharded_smc2(n_theta: int = 1024, n_x: int = 1024,
+                       n_steps: int = 50, mesh=None, device=None):
+    """Bench config 7 through ``parallel.sharded_smc2``: this rank runs
+    its θ-rows with their whole inner filters, and the result is
+    :func:`build_smc2`'s on the same key, sliced by rank. Returns ``(run,
+    oracle, ys)``: ``run(key) -> SMC2Result`` (``thetas`` and
+    ``log_weights`` the rank's rows, the rest replicated)."""
+    from genjax_torch.parallel import sharded_smc2
+
+    device = _device(device)
+    mesh = _world_mesh(mesh, device, "particles")
+    ys = lgssm_observations(n_steps, device)
+    sampler = sharded_smc2(*smc2_model(), n_theta=n_theta, n_x=n_x,
+                           mesh=mesh, proposal=SMC2_PROPOSAL)
+
+    def run(key):
+        return sampler(key.to(device), ys)
+
+    return run, smc2_oracle(ys), ys
+
+
+def build_sharded_pt(n_ladders: int = 4096, n_rungs: int = 16,
+                     n_steps: int = 200, burn_in: int = 200, n_obs: int = 64,
+                     mesh=None, device=None):
+    """:func:`build_pt` through ``parallel.sharded_parallel_tempering``:
+    the rung axis over the mesh, every ladder on every rank. Returns
+    ``(run, exact)``: ``run(key) -> ParallelTemperingResult`` (the rank's
+    rungs of the traces and acceptance rates; the cold chain's samples
+    and the swap rates whole), bit for bit :func:`build_pt`'s run on the
+    same key."""
+    from genjax_torch.parallel import sharded_parallel_tempering
+
+    dev = _device(device)
+    mesh = _world_mesh(mesh, dev, "particles")
+    ys = tempered_observations(n_obs, dev)
+    target = Target(tempered_model(n_obs), (TEMPERED_SIGMA,),
+                    g.C["ys"].set(ys))
+    sampler = sharded_parallel_tempering(target, n_rungs, mesh)
+
+    def run(key):
+        keys = random.split(key.to(dev), n_ladders)
+        return sampler(keys, burn_in + n_steps, burn_in=burn_in,
+                       collect=lambda tr: tr.get_choices()["mu"])
+
+    return run, tempered_exact_posterior(ys)
+
+
+def pgas_model():
+    """PGAS on config 7's LGSSM at ``a = SMC2_A`` for
+    :func:`~genjax_torch.inference.pgibbs.particle_gibbs` (chain batch
+    leading): ``(init_sampler, propagate, loglik, trans_logpdf)``."""
+    a = SMC2_A
+    sq = float(np.sqrt(np.float32(SMC2_Q)))
+    sr = float(np.sqrt(np.float32(SMC2_R)))
+
+    def init_sampler(keys, n):
+        return sq * random.normal(keys, (n,))
+
+    def propagate(keys, xs):
+        return a * xs + sq * random.normal(keys, xs.shape[keys.ndim - 1:])
+
+    def loglik(xs, y):
+        return g.normal.logpdf(y, xs, sr)
+
+    def trans_logpdf(xp, xn):
+        return g.normal.logpdf(xn, a * xp, sq)
+
+    return init_sampler, propagate, loglik, trans_logpdf
+
+
+def build_sharded_pgibbs(n_chains: int = 256, n_particles: int = 128,
+                         n_steps: int = 50, n_sweeps: int = 100, mesh=None,
+                         device=None):
+    """PGAS on config 7's data (:func:`pgas_model`, ``n_steps``
+    observations) through ``parallel.sharded_particle_gibbs``: this rank's
+    chains of ``n_chains``, chain ``i`` on ``fold_in(key, i)``, so its
+    paths are those rows of ``particle_gibbs`` on ``split(key,
+    n_chains)``. Returns ``(run, ys)``: ``run(key) ->
+    ParticleGibbsResult`` of the rank's chains."""
+    from genjax_torch.parallel import sharded_particle_gibbs
+
+    device = _device(device)
+    mesh = _world_mesh(mesh, device, "particles")
+    ys = lgssm_observations(n_steps, device)
+    init_sampler, propagate, loglik, trans_logpdf = pgas_model()
+    sampler = sharded_particle_gibbs(init_sampler, propagate, loglik,
+                                     n_particles, n_sweeps, n_chains, mesh,
+                                     trans_logpdf=trans_logpdf)
+
+    def run(key):
+        return sampler(key.to(device), ys)
+
+    return run, ys
+
+
+def build_elastic_pf(n_particles: int = 2 ** 20, n_steps: int = 32,
+                     device=None):
+    """Config 4's filter (:func:`build_pf`'s model, observations and
+    adaptive systematic resampling at ESS < n/2, the CDF kernel on a
+    card) as a ``step(i, state)`` for ``utils.run_elastic``: step ``i``
+    draws from ``fold_in(k, i)``, so a run resumed from a checkpoint
+    replays it bit for bit. Returns ``make(key, fault_at=None) -> (step,
+    state, log_z)``: the state is ``{"xs", "lw", "log_z", "fault"}``;
+    with ``fault_at``, step ``fault_at`` turns the particles into NaN
+    while ``state["fault"]`` is nonzero (a transient fault that a
+    recovery hook clears); ``log_z(state)`` is the evidence estimate of
+    a finished run."""
+    from genjax_torch.inference.pf import _lse, _lse_ess
+    from genjax_torch.inference.smc import resample_tree
+
+    device = _device(device)
+    ys = tracking_observations(n_steps, device)
+    n = n_particles
+    log_n = math.log(n)
+
+    def make(key, fault_at=None):
+        k_init, k_steps = random.split(key.to(device)).unbind(-2)
+        state = {"xs": random.normal(k_init, (n,)),
+                 "lw": torch.zeros(n, device=device),
+                 "log_z": torch.zeros((), device=device),
+                 "fault": torch.tensor(float(fault_at is not None),
+                                       device=device)}
+
+        def step(i, st):
+            k_res, k_prop = random.split(
+                random.fold_in(k_steps, i)).unbind(-2)
+            xs, lw, log_z = st["xs"], st["lw"], st["log_z"]
+            lse, ess = _lse_ess(lw)
+            if bool(ess < 0.5 * n):
+                xs = resample_tree(k_res, lw, xs, n)
+                log_z = log_z + lse - log_n
+                lw = torch.zeros_like(lw)
+            xs = tracking_propagate(xs, random.normal(k_prop, (n,)))
+            lw = lw + tracking_loglik(xs, ys[i])
+            if i == fault_at:
+                xs = xs + torch.where(st["fault"] != 0, torch.nan, 0.0)
+            return {"xs": xs, "lw": lw, "log_z": log_z,
+                    "fault": st["fault"]}
+
+        def log_z_of(st):
+            return st["log_z"] + _lse(st["lw"]) - log_n
+
+        return step, state, log_z_of
+
+    return make

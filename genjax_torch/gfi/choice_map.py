@@ -433,12 +433,18 @@ class Indexed(ChoiceMap):
     """Dynamic-index node: every leaf of ``inner`` has ``batch_rank``
     leading batch axes and then the lane axis; ``idx`` holds each lane's
     address, and ``idx=None`` means lane ``i`` is addressed by ``i``. The
-    lane axis is found by its position, never by its length."""
+    lane axis is found by its position, never by its length.
+
+    ``per_execution=True``: one address per execution and no lane axis.
+    ``idx`` has the batch's shape, and ``inner`` sits at address
+    ``idx[b]`` of execution ``b`` (what ``extend`` of a traced 0-d index
+    gives under ``jax.vmap``)."""
 
     inner: ChoiceMap
     idx: Any = None
     n: Any = Pytree.static(default=None)
     batch_rank: int = Pytree.static(default=0)
+    per_execution: bool = Pytree.static(default=False)
 
     def _lane_leaf(self):
         for leaf in tree_leaves(self.inner):
@@ -461,6 +467,8 @@ class Indexed(ChoiceMap):
         return None
 
     def static_is_empty(self) -> bool:
+        if self.per_execution:
+            return self.inner.static_is_empty()
         if self.n == 0:
             return True
         if self.n is None and self.idx is None:
@@ -476,6 +484,10 @@ class Indexed(ChoiceMap):
         if self.static_is_empty():
             return Empty()
         idx = self._get_idx()
+        if self.per_execution:
+            if isinstance(comp, slice):
+                return self
+            return self.inner.mask(_t(comp).to(idx.device) == idx)
         r = self.batch_rank
         if isinstance(comp, int) and idx.ndim == 1:
             hits = torch.nonzero(idx.cpu() == comp).flatten()
@@ -518,7 +530,8 @@ class Indexed(ChoiceMap):
         filtered = self.inner.filter(sub)
         if filtered.static_is_empty():
             return Empty()
-        return Indexed(filtered, self.idx, self.n, self.batch_rank)
+        return Indexed(filtered, self.idx, self.n, self.batch_rank,
+                       self.per_execution)
 
 
 @Pytree.dataclass

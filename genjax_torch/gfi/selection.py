@@ -191,10 +191,13 @@ class StaticSel(Selection):
 
 @Pytree.dataclass
 class IdxSel(Selection):
-    """Selects the subtree at a dynamic index (or tensor of indices)."""
+    """Selects the subtree at a dynamic index (or tensor of indices).
+    ``per_execution=True``: ``idx`` has the batch's shape, one address
+    per execution."""
 
     idx: Any
     inner: Selection
+    per_execution: bool = Pytree.static(default=False)
 
     def check(self) -> Flag:
         return False
@@ -204,7 +207,7 @@ class IdxSel(Selection):
             return NoneSel()
         comp_arr = _t(comp)
         idx = _t(self.idx).to(comp_arr.device)
-        if idx.ndim == 0:
+        if idx.ndim == 0 or self.per_execution:
             hit = comp_arr == idx
         else:
             hit = (comp_arr[..., None] == idx).any(dim=-1)

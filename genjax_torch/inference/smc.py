@@ -113,18 +113,22 @@ def _ancestors_from_counts(counts_cum: torch.Tensor, n: int) -> torch.Tensor:
     return torch.clamp(torch.cumsum(marks[:n], 0) - 1, 0, k - 1)
 
 
-def _grid(key, lead: tuple, n: int, method: str) -> torch.Tensor:
+def _grid(key, lead: tuple, n: int, method: str,
+          row_offset: int = 0) -> torch.Tensor:
     """The sorted uniforms ``lead + (n,)`` of a grid-based draw: one
     offset a row (systematic), one a cell (stratified), or normalized
     exponential spacings (multinomial). ``lead`` is the per-key shape in
-    front of the grid axis."""
+    front of the grid axis; ``row_offset``: these are rows
+    ``[row_offset, ...)`` of a larger draw of the same key (``lead`` one
+    axis), bit for bit."""
     dev = key.device
     if method == "systematic":
-        u = random.uniform(key, lead + (1,))
+        u = random.uniform(key, lead + (1,), offset=row_offset)
     elif method == "stratified":
-        u = random.uniform(key, lead + (n,))
+        u = random.uniform(key, lead + (n,), offset=row_offset * n)
     elif method == "multinomial":
-        return _spacings(random.exponential(key, lead + (n + 1,)))
+        return _spacings(random.exponential(key, lead + (n + 1,),
+                                            offset=row_offset * (n + 1)))
     else:
         raise ValueError(f"Unknown resampling method: {method!r}")
     return (u + torch.arange(n, dtype=torch.float32, device=dev)) / n
@@ -177,14 +181,18 @@ def resample_indices_sorted(key, log_weights: torch.Tensor, n: int,
 
 
 def resample_indices_rows(key, log_weights: torch.Tensor, n: int,
-                          method: str = "multinomial") -> torch.Tensor:
+                          method: str = "multinomial",
+                          row_offset: int = 0) -> torch.Tensor:
     """Row-batched :func:`resample_indices`: ``(R, K)`` log-weights ->
     ``(R, n)`` sorted ancestors from ONE key, all randomness in single
-    batched draws (``systematic``: one grid offset a row)."""
+    batched draws (``systematic``: one grid offset a row).
+    ``row_offset``: the rows are ``[row_offset, row_offset + R)`` of a
+    larger row batch on the same key (a rank's θ-rows), whose grid draw
+    they take bit for bit."""
     key = key.to(log_weights.device)
     r = log_weights.shape[0]
     cum = torch.cumsum(_softmax(log_weights), dim=-1)
-    return _owners(cum, _grid(key, (r,), n, method))
+    return _owners(cum, _grid(key, (r,), n, method, row_offset))
 
 
 #: The JAX package's row-scale line: its interval form of
@@ -256,13 +264,16 @@ def resample_values(key, log_weights: torch.Tensor, values, n: int):
     return _expand_by_counts(_counts_cum_rows(u0, log_weights, n), values, n)
 
 
-def resample_values_rows(key, log_weights: torch.Tensor, values, n: int):
+def resample_values_rows(key, log_weights: torch.Tensor, values, n: int,
+                         row_offset: int = 0):
     """Row-batched :func:`resample_values`: ``(R, K)`` log-weights and
     value leaves -> ``(R, n)`` resampled values, one grid offset a row
-    from a single batched draw of ONE key (the SMC² advance step)."""
+    from a single batched draw of ONE key (the SMC² advance step).
+    ``row_offset`` as in :func:`resample_indices_rows`."""
     _check_row_scale(log_weights.shape[-1], n)
     r = log_weights.shape[0]
-    u0 = random.uniform(key.to(log_weights.device), (r, 1))[:, 0]
+    u0 = random.uniform(key.to(log_weights.device), (r, 1),
+                        offset=row_offset)[:, 0]
     return _expand_by_counts(_counts_cum_rows(u0, log_weights, n), values, n)
 
 

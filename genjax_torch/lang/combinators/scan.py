@@ -49,7 +49,7 @@ from genjax_torch.gfi.concepts import (
 )
 from genjax_torch.gfi.gfn import GenerativeFunction, Trace
 from genjax_torch.gfi.requests import Regenerate, Update
-from genjax_torch.gfi.selection import Selection
+from genjax_torch.gfi.selection import IdxSel, Selection
 from genjax_torch.lang.combinators.dimap import Dimap
 from genjax_torch.lang.combinators.mask import MaskCombinator
 from genjax_torch.lang.combinators.vmap import (
@@ -250,17 +250,31 @@ class Scan(GenerativeFunction[Any]):
         if isinstance(request, IndexRequest):
             if Diff.static_check_no_change(argdiffs):
                 return self._edit_index_fast(key, trace, request)
-            if isinstance(request.idx, torch.Tensor) and request.idx.ndim:
-                raise NotImplementedError(
-                    "Scan IndexRequest with one index per execution under "
-                    "changed arguments is not ported")
             # Changed arguments: the O(1) repair would score from the
-            # old step arguments, so lower to the whole-chain request.
+            # old step arguments, so lower to the whole-chain request. An
+            # index per execution addresses each execution's own step, as
+            # the JAX edit's traced index does under ``jax.vmap``.
             sub = request.subrequest
+            per_exec = (isinstance(request.idx, torch.Tensor)
+                        and request.idx.ndim > 0)
+            if per_exec:
+                batch = tuple(key.shape[:-1])
+                if tuple(request.idx.shape) != batch:
+                    raise ValueError(
+                        f"Scan IndexRequest: an index of shape "
+                        f"{tuple(request.idx.shape)} under the batch "
+                        f"{batch}: give one index per execution, or a 0-d "
+                        "one")
+                idx = request.idx.to(key.device, torch.int64)
             if isinstance(sub, Update):
-                request = Update(sub.constraint.extend(request.idx))
+                request = Update(
+                    Indexed(sub.constraint, idx, batch_rank=len(batch),
+                            per_execution=True) if per_exec
+                    else sub.constraint.extend(request.idx))
             elif isinstance(sub, Regenerate):
-                request = Regenerate(sub.selection.extend(request.idx))
+                request = Regenerate(
+                    IdxSel(idx, sub.selection, per_execution=True)
+                    if per_exec else sub.selection.extend(request.idx))
             else:
                 # Re-score the chain under the new arguments, then serve
                 # the index edit at arguments that no longer change.

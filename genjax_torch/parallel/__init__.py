@@ -28,6 +28,11 @@ from genjax_torch.parallel.collectives import (
     shardmap_systematic_resample,
 )
 from genjax_torch.parallel.pf import sharded_particle_filter
+from genjax_torch.parallel.pgibbs import (
+    pooled_chain_means,
+    sharded_particle_gibbs,
+)
+from genjax_torch.parallel.pt import sharded_parallel_tempering
 from genjax_torch.parallel.seq import (
     time_sharded_backward_sample,
     time_sharded_filter,
@@ -38,6 +43,7 @@ from genjax_torch.parallel.smc import (
     sharded_smc_step,
     weighted_mean,
 )
+from genjax_torch.parallel.smc2 import sharded_smc2
 from genjax_torch.parallel.svgd import run_sharded_svgd, sharded_svgd_step
 
 __all__ = [
@@ -57,12 +63,16 @@ __all__ = [
     "is_multihost",
     "local_particle_slice",
     "particle_mesh",
+    "pooled_chain_means",
     "replicated",
     "shard_leading_axis",
     "run_sharded_svgd",
     "sharded_importance",
+    "sharded_parallel_tempering",
     "sharded_particle_filter",
+    "sharded_particle_gibbs",
     "sharded_resample",
+    "sharded_smc2",
     "sharded_smc_step",
     "sharded_svgd_step",
     "time_sharded_backward_sample",

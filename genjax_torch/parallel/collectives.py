@@ -64,6 +64,7 @@ __all__ = [
     "blocked_stats",
     "ring_systematic_resample",
     "ring_resample_step",
+    "take_rows",
 ]
 
 
@@ -84,6 +85,11 @@ class CommLog:
     def add(self, op: str, tag: str, t: torch.Tensor):
         self.records.append((op, tag, t.numel(),
                              t.numel() * t.element_size()))
+
+    def add_sized(self, op: str, tag: str, elements: int, n_bytes: int):
+        """A record whose elements and bytes are given (what crosses
+        ranks, where a collective also copies a rank's own rows)."""
+        self.records.append((op, tag, int(elements), int(n_bytes)))
 
     def by_op(self) -> dict:
         """``{"op/tag": {"calls", "elements", "bytes"}}``."""
@@ -152,6 +158,50 @@ def shift(tensors, ax: Axis, offset: int, tag: str) -> list:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return [o.to(t.dtype) for o, t in zip(outs, tensors)]
+
+
+def take_rows(tree, rows: torch.Tensor, ax: Axis, tag: str):
+    """This rank's slice of ``leaf[rows]`` for every leaf of ``tree``,
+    each leaf held as this rank's slice of its leading axis and ``rows``
+    the whole axis's source rows, the same on every rank (a resample's
+    ancestors). Only rows that other ranks hold move, by one
+    ``all_to_all_single`` a leaf with per-rank counts; the counts are
+    read on the host once (one host sync). ``comm`` counts the elements
+    and bytes that cross ranks."""
+    leaves, spec = tree_flatten(tree)
+    n = rows.shape[0]
+    d, size = ax.rank, ax.size
+    per = n // size
+    rows = rows.to(torch.int64)
+    owner = torch.div(rows, per, rounding_mode="floor")
+    mine = owner[d * per:(d + 1) * per]
+    # Rank q's rows that this rank owns, in q's destination order.
+    send_mask = owner.reshape(size, per) == d
+    counts = torch.stack([send_mask.sum(1),
+                          torch.bincount(mine, minlength=size)]).cpu()
+    comm.host_syncs += 1
+    send_counts, recv_counts = counts.tolist()
+    src = rows.reshape(size, per)[send_mask] - d * per
+    # Received rows arrive grouped by owner rank, in destination order
+    # within a group: a stable sort by owner puts them back in place.
+    place = torch.argsort(mine, stable=True)
+    crossing = per - recv_counts[d]
+    outs = []
+    for leaf in leaves:
+        w = _wire(leaf)
+        send = w[src].contiguous()
+        recv = w.new_empty((per,) + tuple(w.shape[1:]))
+        row_bytes = w[:1].numel() * w.element_size()
+        comm.add_sized("all_to_all", tag, crossing * (row_bytes
+                                                      // w.element_size()),
+                       crossing * row_bytes)
+        dist.all_to_all_single(recv, send, output_split_sizes=recv_counts,
+                               input_split_sizes=send_counts,
+                               group=ax.group)
+        out = torch.empty_like(recv)
+        out[place] = recv
+        outs.append(out.to(leaf.dtype))
+    return tree_unflatten(outs, spec)
 
 
 #: ``all_gather_into_tensor`` under its newer name where torch has it.

@@ -10,7 +10,13 @@ Phase 28's CPU-side helpers: the rank slices of its local-layout check
 (``layout_slices``, ``layout_mismatches``, which must catch a rank-local
 part whose bits depend on the slice), and the float64 offspring counts
 with their tie count against f32 counts. Phase 30a's float64
-forward-backward oracle against enumeration."""
+forward-backward oracle against enumeration.
+
+Phase 31 rehearsed whole on the CPU at small sizes
+(``sharded_samplers_phase``): a gloo world of one in place of NCCL, the
+card's memory and device-time readings stubbed, CDF "launches" counted at
+the resampling call the kernel serves, and phases 21, 23 and 27's
+unsharded runs as its references."""
 
 import json
 import math
@@ -254,3 +260,74 @@ def test_log_matmul_bound_takes_the_split_tf32_rate():
     b_ms, by, _ = chip_smoke.lm_bound(511, 1024)
     assert by == "operations" and math.isclose(
         b_ms, 3 * 2.0 * 511 * 1024 ** 3 / 495e12 * 1e3, rel_tol=1e-12)
+
+
+def test_phase_31_rehearsal(monkeypatch, capsys):
+    import genjax_torch.inference.smc as smc_mod
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+    from genjax_torch.inference import particle_gibbs
+
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "device_busy",
+                        lambda fn, tries=3: (fn(), (2.0, 1.0, 10.0))[1])
+    monkeypatch.setattr(chip_smoke, "SHARDED_DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "TRACE_KERNEL_CAT", "cpu_op")
+    monkeypatch.setattr(chip_smoke, "SHARDED_SIZE", {
+        "smc2": (32, 32, 12), "pt_timed": 3, "pt_profiled": 2,
+        "elastic": (2048, 16, 4, 2, 13), "trace_pf": (1024, 4)})
+    monkeypatch.setattr(chip_smoke, "PT_SIZE", (16, 4, 20, 10))
+    monkeypatch.setattr(chip_smoke, "PGAS_SIZE", (4, 16, 8))
+    # On the CPU no wrapper counts its launches: count the calls the CDF
+    # kernel serves on the card.
+    launches = {"cdf_counts": 0}
+    plain = smc_mod.systematic_cumulative
+
+    def counted(*args, **kwargs):
+        launches["cdf_counts"] += 1
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(smc_mod, "systematic_cumulative", counted)
+
+    def counts():
+        return {"cdf_counts": launches["cdf_counts"], "fused_step": 0,
+                "log_matmul": 0, "expand_adaptive": 0}
+
+    def zero_counts():
+        launches["cdf_counts"] = 0
+
+    dev = torch.device("cpu")
+    n_theta, n_x, steps = chip_smoke.SHARDED_SIZE["smc2"]
+    ladders, rungs, keep, burn = chip_smoke.PT_SIZE
+    n_chains, n_part, sweeps = chip_smoke.PGAS_SIZE
+    pgas = particle_gibbs(*E.pgas_model()[:3], n_part, sweeps,
+                          trans_logpdf=E.pgas_model()[3])
+    refs = {"smc2": E.build_smc2(n_theta, n_x, steps, device=dev)[0](
+                random.key(1)),
+            "pt": E.build_pt(ladders, rungs, keep, burn, device=dev)[0](
+                random.key(1)),
+            "pgas_paths": pgas(random.split(random.key(3), n_chains),
+                               E.lgssm_observations(50, "cpu")).paths}
+    # The rehearsal runs the phase's control flow at a tenth of a percent
+    # of its size; the accuracy bounds hold at full size on the card.
+    monkeypatch.setattr(chip_smoke, "SMC2_LOGZ_BOUND", math.inf)
+    monkeypatch.setattr(chip_smoke, "SMC2_MOMENT_BOUND", math.inf)
+    monkeypatch.setattr(chip_smoke, "ELASTIC_LOGZ_BOUND", math.inf)
+    monkeypatch.setattr(chip_smoke, "SHARDED_MCSE_BOUND", math.inf)
+    out = chip_smoke.sharded_samplers_phase(dev, "cpu", zero_counts, counts,
+                                            refs)
+    text = capsys.readouterr().out
+    for part in ("31a", "31b", "31c", "31d", "31e"):
+        assert f"[{part} " in text
+    assert out["smc2"]["bitwise"] and out["pt"]["bitwise"]
+    assert out["pgas"]["bitwise"]
+    el = out["elastic"]
+    assert [e["kind"] for e in el["events"]] == ["nonfinite"]
+    assert el["events"][0]["resumed_from"] == 8
+    assert el["clean_launches"]["cdf_counts"] >= 1
+    assert out["trace"]["kernel_events"] >= 1
+    assert not torch.distributed.is_initialized()
+    json.dumps(chip_smoke.finite_or_none(out))

@@ -290,12 +290,51 @@ def test_per_execution_index_shape_is_checked():
     with pytest.raises(ValueError, match="one index per execution"):
         tr.edit(R.split(R.key(1), 3),
                 gt.IndexRequest(torch.tensor([0, 1]), _sub(gt, "update")))
-    st = _walk(gt).scan(n=N)
-    trs = st.simulate(keys, (0.5, None))
-    with pytest.raises(NotImplementedError, match="changed arguments"):
-        trs.edit(R.split(R.key(1), 3),
-                 gt.IndexRequest(torch.tensor([0, 1, 2]), _sub(gt, "update")),
-                 gt.Diff.unknown_change((torch.ones(3), None)))
+    # Under changed arguments (a new initial carry per execution) a Scan
+    # index per execution lowers to the whole-chain request at each
+    # execution's own step, as ``jax.vmap`` of the JAX edit does; an
+    # index out of range edits no step. The port's trace starts from the
+    # JAX trace's choices (``lanes_from_numpy``), so the choices an edit
+    # keeps or constrains are bit for bit JAX's; a regenerated one is a
+    # fresh normal, a few ulp from JAX's draw (to 1e-5). Weights and
+    # scores to 1e-5.
+    from genjax_torch.interop import lanes_from_numpy
+
+    sj, st = _walk(gj).scan(n=N), _walk(gt).scan(n=N)
+    keys_j = jax.random.split(jax.random.key(0), 3)
+    ekeys_j = jax.random.split(jax.random.key(1), 3)
+    carry = np.asarray([1.0, -0.5, 2.0], np.float32)
+    trj = jax.vmap(lambda k: sj.simulate(k, (0.5, None)))(keys_j)
+    trs, _ = st.generate(_tkey(keys_j), lanes_from_numpy(
+        {"x": np.asarray(trj.get_choices()[:, "x"])}, batch_rank=1),
+        (0.5, None))
+    close(trs.get_choices()[:, "x"], trj.get_choices()[:, "x"], rtol=0,
+          atol=0)
+    for kind in ("update", "regenerate"):
+        for idx in ([0, 1, 2], [4, -1, 5]):
+            def one(k, tr, i, c):
+                new, w, _, _ = tr.edit(
+                    k, gj.IndexRequest(i, _sub(gj, kind)),
+                    gj.Diff.unknown_change((c, None)))
+                return new.get_choices()[:, "x"], w, new.get_score()
+
+            xj, wj, scj = jax.vmap(one)(ekeys_j, trj, jnp.asarray(idx),
+                                        jnp.asarray(carry))
+            nt, wt, _, _ = trs.edit(
+                _tkey(ekeys_j),
+                gt.IndexRequest(torch.tensor(idx), _sub(gt, kind)),
+                gt.Diff.unknown_change((torch.tensor(carry), None)))
+            edited = (np.arange(N)[None] == np.asarray(idx)[:, None])
+            kept = ~edited if kind == "regenerate" else np.ones_like(edited)
+            xt = _np(nt.get_choices()[:, "x"])
+            np.testing.assert_array_equal(xt[kept], _np(xj)[kept])
+            close(xt, xj)
+            close(wt, wj)
+            close(nt.get_score(), scj)
+    with pytest.raises(ValueError, match="one index per execution"):
+        trs.edit(_tkey(ekeys_j),
+                 gt.IndexRequest(torch.tensor([0, 1]), _sub(gt, "update")),
+                 gt.Diff.unknown_change((torch.tensor(carry), None)))
 
 
 def test_jax_edited_lanes_carried_across():

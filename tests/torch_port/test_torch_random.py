@@ -130,3 +130,22 @@ def test_gamma_ks(alpha):
     assert scipy.stats.kstest(x, scipy.stats.gamma(alpha).cdf).pvalue > 1e-3
     xj = np.asarray(jax.random.gamma(jax.random.key(4), alpha, (20000,)))
     assert scipy.stats.ks_2samp(x, xj).pvalue > 1e-3
+
+
+def test_categorical_distribution_int64_values_are_jax_int32_draws():
+    """``categorical`` draws int64 indices where the JAX package's are
+    int32 (a deliberate deviation: ``torch.gather``, ``scatter`` and
+    ``take_along_dim`` index with int64 only). The values are JAX's draws
+    on the same keys."""
+    import genjax_torch as gt
+    import genjax_tpu as gj
+
+    logits = np.log(np.array([0.15, 0.25, 0.35, 0.25], np.float32))
+    ks = jax.random.split(jax.random.key(17), 512)
+    want = jax.vmap(lambda k: gj.categorical.simulate(
+        k, (jnp.asarray(logits),)).get_retval())(ks)
+    got = gt.categorical.simulate(
+        key_from_numpy(np.asarray(jax.random.key_data(ks))),
+        (torch.as_tensor(logits).expand(512, 4),)).get_retval()
+    assert want.dtype == jnp.int32 and got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want, np.int64))

@@ -449,3 +449,182 @@ def svgd_run(xs, n_steps, step_size):
     m = _mesh()
     return _np(run_sharded_svgd(_svgd_logp, _local(xs, m), n_steps,
                                 step_size, m))
+
+
+# -- sharded SMC², parallel tempering and particle Gibbs -----------------------
+
+
+def smc2_run(key, ys, n_theta, n_x, proposal, ess_threshold, sharded=True):
+    """Config 7's model on the JAX test's data: this rank's θ-rows of
+    ``sharded_smc2`` (or, with ``sharded=False``, the whole unsharded
+    ``smc2`` run), with what ``parallel.comm`` counted."""
+    from genjax_torch.entry import smc2_model
+    from genjax_torch.inference.smc2 import smc2
+    from genjax_torch.parallel import sharded_smc2
+
+    ys = torch.as_tensor(np.asarray(ys))
+    _reset()
+    if sharded:
+        res = sharded_smc2(*smc2_model(), n_theta=n_theta, n_x=n_x,
+                           mesh=_mesh(), proposal=proposal,
+                           ess_threshold=ess_threshold)(_key(key), ys)
+    else:
+        res = smc2(*smc2_model(), n_theta=n_theta, n_x=n_x,
+                   proposal=proposal, ess_threshold=ess_threshold)(
+            _key(key), ys)
+    return {"thetas": _np(res.thetas), "log_weights": _np(res.log_weights),
+            "log_z": _np(res.log_z), "ess_history": _np(res.ess_history),
+            "rejuv_accept": _np(res.rejuv_accept),
+            "n_rejuvenations": res.n_rejuvenations, "comm": _comm()}
+
+
+def _conjugate_pt():
+    import genjax_torch as g
+    from genjax_torch.inference import Target
+    from genjax_torch.inference.requests import Rejuvenate
+
+    @g.gen
+    def conjugate_normal(obs_std):
+        mu = g.normal(0.0, 1.0) @ "mu"
+        return g.normal(mu, obs_std) @ "y"
+
+    def drift_request():
+        @g.gen
+        def drift(old):
+            return g.normal(old["mu"], 0.4) @ "mu"
+
+        return Rejuvenate(drift)
+
+    return (Target(conjugate_normal, (0.5,), g.C["y"].set(1.0)),
+            drift_request)
+
+
+def pt_run(key, n_rungs, n_steps, n_ladders, burn_in, sharded=True):
+    """The JAX test's parallel tempering (ladders of ``n_rungs`` from 0 to
+    1, the drift move) on ``n_ladders`` ladders, keys ``split(key,
+    n_ladders)``: this rank's rungs of ``sharded_parallel_tempering``, or
+    the unsharded run."""
+    from genjax_torch.core import random
+    from genjax_torch.inference.pt import parallel_tempering
+    from genjax_torch.parallel import sharded_parallel_tempering
+
+    target, drift = _conjugate_pt()
+    betas = torch.linspace(0.0, 1.0, n_rungs)
+    if sharded:
+        run = sharded_parallel_tempering(target, betas, _mesh(),
+                                         make_request=drift)
+    else:
+        run = parallel_tempering(target, betas, make_request=drift)
+    _reset()
+    res = run(random.split(_key(key), n_ladders), n_steps, burn_in=burn_in,
+              collect=lambda tr: tr.get_choices()["mu"])
+    return {"samples": _np(res.samples), "swap_rate": _np(res.swap_rate),
+            "accept_rate": _np(res.accept_rate),
+            "mu": _np(res.traces.get_choices()["mu"]),
+            "score": _np(res.traces.get_score()), "comm": _comm()}
+
+
+def _pgibbs_model(a, q, r):
+    import math
+
+    from genjax_torch.core import random
+    from genjax_torch.lang.distributions import normal
+
+    sig1, sq, sr = math.sqrt(a * a + q), math.sqrt(q), math.sqrt(r)
+
+    def init(keys, n):
+        return sig1 * random.normal(keys, (n,))
+
+    def prop(keys, xs):
+        return a * xs + sq * random.normal(keys, xs.shape[keys.ndim - 1:])
+
+    def ll(xs, y):
+        return normal.logpdf(y, xs, sr)
+
+    def tl(xp, xn):
+        return normal.logpdf(xn, a * xp, sq)
+
+    return init, prop, ll, tl
+
+
+def pgibbs_run(key, ys, a, q, r, n_particles, n_iters, n_chains,
+               sharded=True, burn_in=0):
+    """The JAX test's PGAS chains: this rank's chains of
+    ``sharded_particle_gibbs`` with the pooled per-chain means, or the
+    unsharded run on ``split(key, n_chains)``."""
+    from genjax_torch.core import random
+    from genjax_torch.inference.pgibbs import particle_gibbs
+    from genjax_torch.parallel import (
+        pooled_chain_means,
+        sharded_particle_gibbs,
+    )
+
+    init, prop, ll, tl = _pgibbs_model(a, q, r)
+    ys = torch.as_tensor(np.asarray(ys))
+    if not sharded:
+        res = particle_gibbs(init, prop, ll, n_particles, n_iters,
+                             trans_logpdf=tl)(
+            random.split(_key(key), n_chains), ys)
+        return {"paths": _np(res.paths)}
+    m = _mesh()
+    res = sharded_particle_gibbs(init, prop, ll, n_particles, n_iters,
+                                 n_chains, m, trans_logpdf=tl)(_key(key), ys)
+    return {"paths": _np(res.paths),
+            "means": _np(pooled_chain_means(res.paths, m, burn_in=burn_in))}
+
+
+# -- checkpoints and elastic recovery ------------------------------------------
+
+
+def _elastic_step(key, n):
+    """A per-particle step on this rank's rows of ``n``: every particle's
+    draw from ``fold_in(fold_in(key, i), particle)``, so the result does
+    not depend on the layout; a NaN at global step 13 while ``poison``."""
+    from genjax_torch.core import random
+    from genjax_torch.parallel.mesh import rank_range
+
+    lo, hi = rank_range(n, _mesh(), "particles")
+    rows = torch.arange(lo, hi)
+
+    def step(i, st):
+        eps = random.normal(random.fold_in(random.fold_in(key, i)[None],
+                                           rows))
+        xs = 0.9 * st["xs"] + 0.1 * eps
+        lw = st["lw"] - 0.5 * xs * xs
+        bad = (i == 13) & (st["poison"] != 0.0)
+        return {"xs": xs + torch.where(bad, torch.nan, 0.0), "lw": lw,
+                "t": st["t"] + 1.0, "poison": st["poison"]}
+
+    return step, lo, hi
+
+
+def elastic_dcp(key, xs0, ckpt_dir, n_steps, poison, restore_at=None):
+    """``run_elastic`` over this rank's rows with a DCP checkpoint every
+    2 chunks of 4 in ``ckpt_dir``; a NaN at step 13 while ``poison``,
+    cleared by ``place`` on recovery. With ``restore_at``, the state is
+    first restored from ``ckpt_dir`` (saved by another world) and the
+    run goes on from that step. Returns this rank's final rows, the
+    events and the restored step."""
+    from genjax_torch.utils import restore_checkpoint, run_elastic
+
+    m = _mesh()
+    step, lo, hi = _elastic_step(_key(key), len(xs0))
+    state = {"xs": torch.as_tensor(np.asarray(xs0))[lo:hi],
+             "lw": torch.zeros(hi - lo), "t": torch.zeros(()),
+             "poison": torch.tensor(float(poison))}
+    start = 0
+    if restore_at is not None:
+        state = restore_checkpoint(ckpt_dir, state, m)
+        state["poison"] = torch.zeros(())
+        start = restore_at
+        ckpt_dir = ckpt_dir + "_resumed"
+
+    def place(st, devs):
+        return {**st, "poison": torch.zeros(())}
+
+    res = run_elastic(lambda i, s: step(start + i, s), state,
+                      n_steps - start, ckpt_path=ckpt_dir, chunk=4,
+                      checkpoint_every=2, max_retries=2, place=place)
+    return {"state": {k: _np(v) for k, v in res.state.items()},
+            "events": [(e.kind, e.step, e.resumed_from, e.n_devices)
+                       for e in res.events]}
