@@ -175,6 +175,18 @@ Phases (each prints one line; any failure exits non-zero):
      re-scored a move; wall and dispatched ops a sweep), and the 2-site
      chain at 2^19 x 200 sweeps within 4 se of 2/3; (d) config 6's wall
      with the GFI argument checks on and under no_validation().
+ 31. the sharded samplers in an NCCL world of one: config 7 and PT bit
+     for bit phases 21 and 27, PGAS at 256 x 128 x 50 x 20 sweeps bit for
+     bit the unsharded sampler, config 4 under run_elastic, a trace.
+ 32. the 29 documented programs (genjax_torch/examples), started in a
+     pool of worker processes before phase 14 and collected after phase
+     31: each at its documented size (ex03, ex10, ex11, ex12, ex13, ex15
+     at their REHEARSAL sizes), its results against the CPU's under the
+     CPU tests' tolerances, ex01's and ex05's closed forms within 5 of
+     their Monte Carlo sd, each resampling program's CDF launches > 0,
+     and each program's wall. The pool's workers share the card and the
+     host with phases 14-31, whose times are so contended (the record's
+     "contended").
 Phases 24-27 each print the wall of a run (the median of 3), its rate,
 a profiled short run's device-busy time, idle share and device ops a
 step, and the peak device memory; none launches one of the four kernels,
@@ -1299,9 +1311,11 @@ def mixture_phase(dev, card: str, zero_counts, counts) -> dict:
     check(all(v <= 1.0 for v in worst.values()),
           f"mixture index-change Update beyond the bound: {worst}")
     walls_sir = _timed_runs(lambda i: sir(random.key(10 + i, device=dev)))
-    walls_mh = _timed_runs(lambda i: run_mh(random.key(20 + i, device=dev)))
+    # One timed MH run: its median of 3 is on record (PR 7).
+    walls_mh = _timed_runs(lambda i: run_mh(random.key(20 + i, device=dev)),
+                           1)
     rate_sir = n_part / sorted(walls_sir)[1]
-    rate_mh = n_chains * n_mh / sorted(walls_mh)[1]
+    rate_mh = n_chains * n_mh / walls_mh[0]
     sp_wall, sp_busy, sp_kernels, sp_ops, _ = profiled(
         lambda: sir(random.key(30, device=dev)), 1)
     _, short_mh, _ = E.build_switch_mixture(n_part, n_chains, 4, device=dev)
@@ -1518,36 +1532,44 @@ def trace_phase(dev, card: str, zero_counts, counts) -> dict:
               f"{name} launched another kernel: {launches}")
         check(math.isfinite(logz) and abs(logz - ex) <= bound,
               f"{name}: log Z {logz} vs exact {ex} (bound {bound})")
-        # A run dispatches about 10^6 ops (the refresh's Regenerate of
-        # the Scan, a 33-site body's edits): one timed run, and one
-        # profiled from the raw device events.
-        p_wall, busy, ops = device_busy(
-            lambda: fn(random.key(20, device=dev)))
         rate = n * steps / wall
         out[name] = {"particles": n, "steps": steps, "log_z": logz,
                      "exact_log_z": ex, "log_z_err": abs(logz - ex),
                      "resamples": resamples, "launches": launches,
                      "wall_ms": wall * 1e3,
-                     "particle_steps_per_s": rate,
-                     "profiled_wall_ms": p_wall, "device_busy_ms": busy,
-                     "idle_share": 1.0 - busy / p_wall, "device_ops": ops,
-                     "peak_gb": peak}
+                     "particle_steps_per_s": rate, "peak_gb": peak}
         if name == "data_smc":
             out[name]["accept_rate"] = float(res.accept_rate.mean())
         print(f"[22 {name}] {card}: {n} particles x {steps} steps: log Z "
               f"{logz:.5f} vs exact {ex:.5f} (|err| {abs(logz - ex):.5f}, "
               f"bound {bound}); {resamples} resamples, launches {launches}; "
               f"wall {wall * 1e3:.1f} ms, {rate:.6g} particle-steps/s; "
-              f"profiled run {p_wall:.1f} ms, device busy {busy:.3f} ms, "
-              f"idle share {out[name]['idle_share']:.4f}, {ops:.0f} device "
-              f"ops; peak device memory {peak:.3f} GB above what earlier "
-              f"phases hold", flush=True)
+              f"peak device memory {peak:.3f} GB above what earlier phases "
+              "hold", flush=True)
         del res
+    # A run dispatches about 10^6 ops (the refresh's Regenerate of the
+    # Scan, a 33-site body's edits). The data SMC's run is profiled from
+    # the raw device events; the trace PF's profiled run (about 36 s) is
+    # on record (PR 8).
+    p_wall, busy, ops = device_busy(lambda: run_d(random.key(20, device=dev)))
+    out["data_smc"].update({"profiled_wall_ms": p_wall,
+                            "device_busy_ms": busy,
+                            "idle_share": 1.0 - busy / p_wall,
+                            "device_ops": ops})
+    print(f"[22 data_smc profiled] {card}: profiled run {p_wall:.1f} ms, "
+          f"device busy {busy:.3f} ms, idle share "
+          f"{out['data_smc']['idle_share']:.4f}, {ops:.0f} device ops",
+          flush=True)
     return out
 
 
-#: Phase 23's PGAS (chains, particles, sweeps); phase 31c shards it.
+#: Phase 23's PGAS (chains, particles, sweeps).
 PGAS_SIZE = (256, 128, 100)
+#: Phase 31c's PGAS: phase 23's chains and particles at 20 of its 100
+#: sweeps, sharded and unsharded (bit for bit holds at any sweep count; the
+#: smoothing means' MCSE bound holds at any count, the chains' means being
+#: independent across chains).
+PGAS_SHARDED_SIZE = (256, 128, 20)
 
 
 def gensp_phase(dev, card: str) -> dict:
@@ -1624,8 +1646,7 @@ def gensp_phase(dev, card: str) -> dict:
            "pgas": {"chains": n_chains, "particles": n_part,
                     "sweeps": n_sweeps, "steps": int(ys.shape[0]),
                     "max_z": float(z.max()), "wall_s": pg_s,
-                    "particle_steps_per_s": steps / pg_s},
-           "_pgas_paths": res.paths}
+                    "particle_steps_per_s": steps / pg_s}}
     print(f"[23 GenSP + particle Gibbs] {card}: Marginal(v) by ImportanceK "
           f"2^16 behind ChangeTarget, {n_keys} keys: mean exp(estimate) "
           f"{d_mean:.6f} vs 0.5 (se {d_se:.3g}, {marg_s:.2f} s); "
@@ -1812,8 +1833,9 @@ def bnn_vi_phase(dev, card: str, zero_counts, counts) -> dict:
     check(math.isfinite(after) and after <= C9_NEG_ELBO_FRACTION * before,
           f"config 9: -ELBO {after} after {steps} steps vs {before} at 0")
     t_steps = min(50, steps)
+    # One timed 50-step run: its median of 3 is on record (PR 9).
     walls, wall = _median_wall(None, lambda i: run(
-        random.key(30 + i, device=dev), n=t_steps))
+        random.key(30 + i, device=dev), n=t_steps), 1)
     rate = t_steps / wall
     fwd = 2.0 * b * din * dh + 2.0 * b * dh
     share = 3.0 * fwd * rate / F32_OPS_PER_S
@@ -2066,8 +2088,8 @@ DIST_SIR_REL, DIST_HMM_REL = 1e-5, 1e-6
 
 def _dist_measure(label: str, card: str, run, steps: int, work: float,
                   unit: str, zero_counts, counts, first=None,
-                  phase: str = "28") -> dict:
-    """Time ``run(i)`` (a whole run, synchronized) three times, the first
+                  phase: str = "28", runs: int = 3) -> dict:
+    """Time ``run(i)`` (a whole run, synchronized) ``runs`` times, the first
     with the launch counters and the collective log set to 0 just before
     it, and profile one more run: the median wall, the rate (``work``
     per second), the collectives a step by op with their bytes, the host
@@ -2092,7 +2114,7 @@ def _dist_measure(label: str, card: str, run, steps: int, work: float,
     syncs, trips = comm.host_syncs, comm.ring_trips
     max_elements = comm.max_elements()
     peak = (torch.cuda.max_memory_allocated() - held) / 1e9
-    walls, wall = _median_wall(wall0, lambda i: run(i + 1))
+    walls, wall = _median_wall(wall0, lambda i: run(i + 1), runs)
     p_wall, busy, ops = device_busy(lambda: run(9))
     out = {"result": result, "launches": launches, "wall_ms":
            [w * 1e3 for w in walls], "median_wall_ms": wall * 1e3,
@@ -2373,7 +2395,7 @@ def distributed_phase(dev, card: str, zero_counts, counts) -> dict:
         res = _dist_measure("f NUTS mesh=", card, lambda i: run_m(
             random.key(i, device=dev)), warm + samples,
             chains * (warm + samples), "chain_transitions", zero_counts,
-            counts)
+            counts, runs=1)  # one timed run: the median of 3 is on record
         chm_m, _ = res.pop("result")
         chm_n, _ = run_n(random.key(0, device=dev))
         logd = _regression_logdensity(dev, chains)
@@ -3414,7 +3436,7 @@ def batched_slice_phase(dev, card: str, zero_counts, counts) -> dict:
 #: (θ-particles, x-particles, steps); PT's timed and profiled step counts
 #: (its run is PT_SIZE, phase 27's); config 4 under ``run_elastic``
 #: (particles, steps, chunk, checkpoint cadence in chunks, the faulty
-#: step). PGAS is phase 23's PGAS_SIZE.
+#: step). PGAS is PGAS_SHARDED_SIZE.
 SHARDED_SIZE = {"smc2": (1024, 1024, 50), "pt_timed": 20, "pt_profiled": 4,
                 "elastic": (1 << 20, 32, 4, 2, 13), "trace_pf": (1 << 20, 32)}
 #: The group of phase 31: NCCL on the card (a CPU rehearsal takes gloo).
@@ -3461,6 +3483,7 @@ def sharded_samplers_phase(dev, card: str, zero_counts, counts,
     from genjax_torch import models as M
     from genjax_torch import parallel as P
     from genjax_torch.core import random
+    from genjax_torch.inference import particle_gibbs
     from genjax_torch.inference.smc2 import smc2 as smc2_fn
     from genjax_torch.utils import (
         profile_trace,
@@ -3587,9 +3610,17 @@ def sharded_samplers_phase(dev, card: str, zero_counts, counts,
         del got
 
         # -- 31c. PGAS with its chains sharded -------------------------------
-        n_chains, n_part, n_sweeps = PGAS_SIZE
+        n_chains, n_part, n_sweeps = PGAS_SHARDED_SIZE
         run_c, ys = E.build_sharded_pgibbs(n_chains, n_part, 50, n_sweeps,
                                            device=dev)
+        want = refs.get("pgas_paths")
+        if want is None:
+            # The reference: the unsharded sampler at this size (phase
+            # 23's code path, on phase 23's key).
+            init_s, prop_s, ll_s, tl_s = E.pgas_model()
+            want = particle_gibbs(init_s, prop_s, ll_s, n_part, n_sweeps,
+                                  trans_logpdf=tl_s)(
+                random.split(random.key(3, device=dev), n_chains), ys).paths
         zero_counts()
         P.comm.reset()
         torch.cuda.synchronize()
@@ -3598,8 +3629,8 @@ def sharded_samplers_phase(dev, card: str, zero_counts, counts,
         torch.cuda.synchronize()
         pg_s = time.perf_counter() - t0
         launches = counts()
-        check(_same(got.paths, refs["pgas_paths"]),
-              "31c: the paths differ from phase 23's")
+        check(_same(got.paths, want),
+              "31c: the paths differ from the unsharded sampler's")
         _no_kernel(launches, "31c (sharded PGAS)")
         means = P.pooled_chain_means(got.paths, mesh,
                                      burn_in=n_sweeps // 5).cpu()
@@ -3617,7 +3648,8 @@ def sharded_samplers_phase(dev, card: str, zero_counts, counts,
                        "collectives": P.comm.by_op(), "launches": launches}
         print(f"[31c sharded PGAS] {card}: {n_chains} chains x {n_part} x "
               f"{int(ys.shape[0])} steps x {n_sweeps} sweeps: bit for bit "
-              f"phase 23's paths; smoothing means within {float(z.max()):.2f}"
+              f"the unsharded sampler's paths; smoothing means within "
+              f"{float(z.max()):.2f}"
               f" MCSE of the RTS smoother; {pg_s:.2f} s, "
               f"{steps_c / pg_s:.6g} particle-steps/s", flush=True)
         del got
@@ -3733,7 +3765,144 @@ def sharded_samplers_phase(dev, card: str, zero_counts, counts,
     return out
 
 
+#: Phase 32: the documented programs of the JAX package, ported
+#: (genjax_torch/examples), each at its documented size on the card but
+#: for the six that define REHEARSAL sizes (ex03, ex10, ex11, ex12, ex13,
+#: ex15): at their documented sizes they took 432-1389 s each on the card
+#: (tools/examples_on_card.py), so they run at REHEARSAL here and against
+#: the CPU's run at the same sizes. Each is bound by the host's issue of
+#: small ops (one core), so a pool of worker processes runs them beside
+#: phases 14-31 and phase 32 collects them after phase 31; the programs
+#: that take longest go first.
+EXAMPLE_WORKERS = 4
+EXAMPLE_FIRST = ("ex12_particle_gibbs", "ex11_constrained_nuts",
+                 "ex13_parameter_inference", "ex03_nuts_regression",
+                 "ex15_svgd_and_slice", "ex10_state_space_vi",
+                 "cb13_exact_oracles")
+#: The programs whose path resamples through the CDF kernel: each must
+#: launch it on the card.
+EXAMPLE_RESAMPLERS = ("ex02_state_space_pf", "ex07_tempered_smc",
+                      "ex08_trace_level_pf", "ex09_smc_samplers",
+                      "ex13_parameter_inference", "cb09_h100_performance")
+#: Checks whose card path carries a Not-fault the CPU's does not (the
+#: card's reduction order, amplified by SMC²'s inner resampling or a NUTS
+#: trajectory, or in a variance of 1500 log-weights): held to the CPU run
+#: within the Monte Carlo bound of the tests (4 sqrt(2) sd of
+#: examples/spread.json) where the test's own bound is tighter.
+EXAMPLE_CARD_MC = {
+    "ex13_parameter_inference": ("smc2_mean", "smc2_log_z", "smc2_accept"),
+    "ex14_pod_scale_inference": ("nuts_mu_mean",),
+    "cb10_ravi_stacks": ("var_prior", "var_ravi")}
+#: The closed forms the JAX programs print without a stated tolerance:
+#: each within 5 of the run's own Monte Carlo sd (spread.json).
+EXAMPLE_EXACT = {"ex01_beta_bernoulli_sir": {"mean_true": 0.6,
+                                             "mean_false": 0.4},
+                 "ex05_sharded_smc": {"log_z": math.log(0.5)}}
+
+
+def start_examples(names=None, device: str = "cuda") -> dict:
+    """Start phase 32's pool (spawned workers, one intra-op thread each)
+    and submit every program (or ``names``; a CPU rehearsal passes
+    ``device="cpu"``)."""
+    import concurrent.futures as cf
+    import multiprocessing
+
+    import torch
+
+    from genjax_torch.examples import COOKBOOK, EXAMPLES, run_program
+    from genjax_torch.examples.holding import rehearsal_sizes
+
+    names = sorted(names or EXAMPLES + COOKBOOK,
+                   key=lambda n: n not in EXAMPLE_FIRST)
+    pool = cf.ProcessPoolExecutor(
+        EXAMPLE_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=torch.set_num_threads, initargs=(1,))
+    t0 = time.perf_counter()
+    return {"pool": pool, "t0": t0, "futures": {
+        n: pool.submit(run_program, n, device, rehearsal_sizes(n))
+        for n in names}}
+
+
+def examples_phase(card: str, started: dict) -> dict:
+    """Phase 32: wait for the pool, then hold each program's card results
+    to its CPU reference under the tests' tolerances
+    (``genjax_torch.examples.specs``), and the closed forms of
+    EXAMPLE_EXACT; record each program's wall and launches."""
+    from genjax_torch.examples import holding as H
+    from genjax_torch.examples.specs import PROGRAMS
+
+    t_wait = time.perf_counter()
+    pool, futures = started["pool"], started["futures"]
+    try:
+        runs = {n: f.result() for n, f in futures.items()}
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    waited = time.perf_counter() - t_wait
+    pool_s = time.perf_counter() - started["t0"]
+    ref, spread = H.reference(), H.spread()
+    out = {}
+    for name, run in runs.items():
+        res, prog = run["result"], PROGRAMS[name]
+        check(H.finite_tree(res), f"32 {name}: a result is not finite")
+        try:
+            H.check_current(name, ref[name])
+        except AssertionError as e:
+            fail(f"32 {name}: {e}")
+        sizes = H.rehearsal_sizes(name)
+        cpu = ref[name]["result"] if sizes is None else \
+            ref[name]["rehearsal"]["result"]
+        # A rehearsal's Monte Carlo spread is its own (fewer draws).
+        try:
+            worst = H.hold_to_port(
+                prog, res, cpu, name if sizes is None else
+                name + "@rehearsal", EXAMPLE_CARD_MC.get(name, ()))
+        except AssertionError as e:
+            fail(f"32 {name}: the card against the CPU: {e}")
+        for key, value in EXAMPLE_EXACT.get(name, {}).items():
+            sd = spread[name][key]["sd"]
+            check(abs(res[key] - value) <= 5 * sd, f"32 {name}: {key} "
+                  f"{res[key]} vs the closed form {value} (5 sd = {5 * sd})")
+        launches = run["launches"]
+        if name in EXAMPLE_RESAMPLERS:
+            check(launches["cdf_counts"] > 0,
+                  f"32 {name}: resamples but never launched the CDF kernel")
+        out[name] = {"wall_s": run["wall_s"], "launches": launches,
+                     "sizes": "documented" if sizes is None else sizes,
+                     "worst_bound_share": worst, "result": res}
+        print(f"[32 {name}] {card}: "
+              f"{'documented size' if sizes is None else sizes}: wall "
+              f"{run['wall_s']:.2f} s, launches {launches}, card vs CPU "
+              f"within {worst:.3f} of the bound", flush=True)
+    cdf = sum(o["launches"]["cdf_counts"] for o in out.values())
+    print(f"[32] {card}: {len(out)} programs in a pool of {EXAMPLE_WORKERS} "
+          f"workers beside phases 14-31: {pool_s:.1f} s from the pool's "
+          f"start, {waited:.1f} s waited after phase 31; sum of walls "
+          f"{sum(o['wall_s'] for o in out.values()):.1f} s; CDF launches "
+          f"{cdf}", flush=True)
+    return {"programs": out, "pool_s": pool_s, "waited_s": waited,
+            "workers": EXAMPLE_WORKERS, "cdf_launches": cdf}
+
+
+def stop_examples(started: dict) -> None:
+    """Stop phase 32's pool and every worker it started (a failed phase
+    must not wait for the programs still running)."""
+    pool = started["pool"]
+    for proc in list((getattr(pool, "_processes", None) or {}).values()):
+        if proc.is_alive():
+            proc.terminate()
+    pool.shutdown(wait=True, cancel_futures=True)
+
+
 def main() -> int:
+    started: dict = {}
+    try:
+        return _main(started)
+    finally:
+        if started:
+            stop_examples(started)
+
+
+def _main(started: dict) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -4457,6 +4626,13 @@ def main() -> int:
           f"64 lanes x {n_sm} SMs x {sm_clock_hz / 1e9:.3f} GHz); device "
           f"{busy['fused_step']} ms is {fused_bound / busy['fused_step']:.3f} "
           f"of the larger", flush=True)
+    # -- 32 (started). the documented programs, beside phases 14-31 --------
+    started.update(start_examples())
+    print(f"[32 started] {card}: {EXAMPLE_WORKERS} worker processes run the "
+          "documented programs on this card and host from here to phase 31: "
+          "the walls, rates, idle shares and profiles of phases 14-31 are "
+          "contended", flush=True)
+
     # -- 14. edits on the card against the CPU ------------------------------
     c6_edit = edits_phase(dev, card)
 
@@ -4543,9 +4719,14 @@ def main() -> int:
 
     # -- 31. sharded SMC², PT and PGAS; elastic recovery; profile_trace ----
     shard31 = sharded_samplers_phase(dev, card, zero_counts, counts, {
-        "smc2": config7.pop("_result"), "pt": pt_map["pt"].pop("_result"),
-        "pgas_paths": gensp.pop("_pgas_paths")})
+        "smc2": config7.pop("_result"), "pt": pt_map["pt"].pop("_result")})
     el31 = shard31["elastic"]
+
+    # -- 32. the documented programs on the card ----------------------------
+    ex32 = examples_phase(card, started)
+    ex32_launches = {k: sum(o["launches"][k]
+                            for o in ex32["programs"].values())
+                     for k in ("fused_step", "log_matmul", "expand_adaptive")}
     cdf31 = (el31["clean_launches"]["cdf_counts"]
              + el31["hurt_launches"]["cdf_counts"])
     hb30 = slice30["hmm_batch"]
@@ -4565,7 +4746,7 @@ def main() -> int:
                       + trace_level["trace_pf"]["launches"]["cdf_counts"]
                       + trace_level["data_smc"]["launches"]["cdf_counts"]
                       + base28["cdf_counts"] + gp29["cdf_counts"]
-                      + cdf31),
+                      + cdf31 + ex32["cdf_launches"]),
          "launches_by_run": {
              **{k: v["cdf_counts"] for k, v in by_run.items()},
              "config_4_path": launches["cdf_counts"],
@@ -4581,7 +4762,10 @@ def main() -> int:
                  "cdf_counts"],
              "build_sharded_pf_baseline": base28["cdf_counts"],
              "build_gamma_poisson_sir": gp29["cdf_counts"],
-             "build_elastic_pf": cdf31},
+             "build_elastic_pf": cdf31,
+             "documented_programs": {
+                 n: o["launches"]["cdf_counts"]
+                 for n, o in ex32["programs"].items()}},
          "max_abs_err": cdf_err,
          "ms": cdf_ms, "plain_ms": cdf_plain_ms,
          "bound_ms": cdf_bound, "bound_by": cdf_by, "library_ms": None,
@@ -4593,8 +4777,10 @@ def main() -> int:
          "models": ["genjax_torch/csrc/models/tracking.cuh",
                     "genjax_torch/csrc/models/linear.cuh"],
          "replaces": "genjax_tpu/ops/fused_step.py:215",
-         "launches": launches["fused_step"],
-         "launches_by_run": {k: v["fused_step"] for k, v in by_run.items()},
+         "launches": launches["fused_step"] + ex32_launches["fused_step"],
+         "launches_by_run": {
+             **{k: v["fused_step"] for k, v in by_run.items()},
+             "documented_programs": ex32_launches["fused_step"]},
          "max_abs_err": fused_err,
          "ms": fused_ms, "plain_ms": fused_plain_ms,
          "bound_ms": fused_bound, "bound_by": fused_by, "library_ms": None,
@@ -4607,9 +4793,11 @@ def main() -> int:
         {"name": "log_matmul", "route": "cuda",
          "source": "genjax_torch/csrc/logmatmul.cu",
          "replaces": "genjax_tpu/ops/logmatmul.py:61",
-         "launches": hmm_launches["log_matmul"] + lm_batch,
+         "launches": (hmm_launches["log_matmul"] + lm_batch
+                      + ex32_launches["log_matmul"]),
          "launches_by_run": {"build_hmm_parallel": hmm_launches[
-             "log_matmul"], "build_hmm_batch": lm_batch},
+             "log_matmul"], "build_hmm_batch": lm_batch,
+             "documented_programs": ex32_launches["log_matmul"]},
          "max_abs_err": max(lm_err, row30["max_abs_err"]),
          "ms": lm_main["ms"], "plain_ms": lm_main["plain_ms"],
          "bound_ms": lm_main["bound_ms"], "bound_by": lm_main["bound_by"],
@@ -4622,9 +4810,11 @@ def main() -> int:
         {"name": "expand_adaptive", "route": "cuda",
          "source": "genjax_torch/csrc/expand_adaptive.cu",
          "replaces": "genjax_tpu/ops/expand_adaptive.py:223",
-         "launches": ea_launches["expand_adaptive"],
+         "launches": (ea_launches["expand_adaptive"]
+                      + ex32_launches["expand_adaptive"]),
          "launches_by_run": {"expand_adaptive": ea_launches[
-             "expand_adaptive"]},
+             "expand_adaptive"],
+             "documented_programs": ex32_launches["expand_adaptive"]},
          "max_abs_err": 0,
          "ms": ea_ms, "plain_ms": ea_plain_ms,
          "bound_ms": ea_bound, "bound_by": ea_by, "library_ms": ea_lib_ms,
@@ -4644,7 +4834,12 @@ def main() -> int:
         "config_9": config9, "config_10": config10,
         "parallel_tempering": pt_map["pt"],
         "map_laplace": pt_map["map_laplace"], "distributed": dist28,
-        **dist29, "batched_slice": slice30, "sharded_samplers": shard31}
+        **dist29, "batched_slice": slice30, "sharded_samplers": shard31,
+        "documented_programs": ex32,
+        "contended": {"phases": list(range(14, 32)), "by": (
+            f"phase 32's pool of {EXAMPLE_WORKERS} worker processes on the "
+            "same card and host"), "what": "walls, rates, idle shares and "
+            "profiles; checks and launch counts are not affected"}}
     print(card, flush=True)
     print(json.dumps(finite_or_none(record)), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -75,22 +75,8 @@ from genjax_torch.lang.static import (
     StaticTrace,
     gen,
 )
-from genjax_torch.lang.combinators import (
-    OrElse,
-    Scan,
-    Switch,
-    Vmap,
-    accumulate,
-    iterate,
-    iterate_final,
-    mix,
-    or_else,
-    reduce,
-    repeat,
-    scan,
-    switch,
-    vmap,
-)
+from genjax_torch.lang.combinators import *  # noqa: F401,F403
+from genjax_torch.lang.combinators import __all__ as _comb_all
 from genjax_torch.core import random  # noqa: E402
 from genjax_torch import adev, inference, models, ops, parallel, utils  # noqa: E402,F401,E501
 from genjax_torch.inference import (  # noqa: E402
@@ -155,25 +141,20 @@ __all__ = [
     "NUTS",
     "NoChange",
     "NotSupportedEditRequest",
-    "OrElse",
     "PrimitiveEditRequest",
     "Pytree",
     "Regenerate",
     "Rejuvenate",
     "Retdiff",
     "S",
-    "Scan",
     "Score",
     "Selection",
     "StaticRequest",
     "StaticTrace",
-    "Switch",
     "Trace",
     "UnknownChange",
     "Update",
-    "Vmap",
     "Weight",
-    "accumulate",
     "build_nuts_logreg",
     "build_nuts_regression",
     "build_slds_rbpf",
@@ -187,24 +168,16 @@ __all__ = [
     "gen",
     "adev",
     "inference",
-    "iterate",
-    "iterate_final",
-    "mix",
     "models",
     "multi_switch",
     "nuts_kernel",
     "ops",
     "parallel",
     "utils",
-    "or_else",
     "random",
-    "reduce",
-    "repeat",
     "run_nuts",
-    "scan",
     "split_rhat",
-    "switch",
     "tree_choose",
-    "vmap",
     *_dist_all,
+    *_comb_all,
 ]

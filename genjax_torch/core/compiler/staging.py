@@ -37,6 +37,16 @@ def _t(x, like=None) -> torch.Tensor:
     return torch.as_tensor(x, device=dev)
 
 
+def _pair(a, b) -> tuple:
+    """Two flags as tensors on one device: a CPU flag (a lane index's
+    comparison, say) joins a card flag on the card."""
+    a, b = _t(a, b), _t(b, a)
+    if a.device != b.device:
+        dev = a.device if a.device.type != "cpu" else b.device
+        a, b = a.to(dev), b.to(dev)
+    return a, b
+
+
 class FlagOp:
     """Boolean ops over possibly-concrete flags: Python bools fold away,
     tensors become ``torch`` logical ops."""
@@ -60,7 +70,7 @@ class FlagOp:
             return b
         if b is True:
             return a
-        return torch.logical_and(_t(a, b), _t(b, a))
+        return torch.logical_and(*_pair(a, b))
 
     @staticmethod
     def or_(a: Flag, b: Flag) -> Flag:
@@ -72,13 +82,13 @@ class FlagOp:
             return b
         if b is False:
             return a
-        return torch.logical_or(_t(a, b), _t(b, a))
+        return torch.logical_or(*_pair(a, b))
 
     @staticmethod
     def xor_(a: Flag, b: Flag) -> Flag:
         if isinstance(a, bool) and isinstance(b, bool):
             return a != b
-        return torch.logical_xor(_t(a, b), _t(b, a))
+        return torch.logical_xor(*_pair(a, b))
 
     @staticmethod
     def not_(a: Flag) -> Flag:

@@ -30,6 +30,7 @@ __all__ = [
     "tree_unflatten",
     "ravel_pytree",
     "event_sum",
+    "nth",
 ]
 
 
@@ -277,3 +278,8 @@ def event_sum(x: torch.Tensor, batch_rank: int) -> torch.Tensor:
     if x.ndim <= batch_rank:
         return x
     return x.sum(dim=tuple(range(batch_rank, x.ndim)))
+
+
+def nth(tree: Any, idx) -> Any:
+    """Index every leaf of ``tree`` with ``idx``."""
+    return tree_map(lambda v: v[idx], tree)

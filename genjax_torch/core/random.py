@@ -69,10 +69,43 @@ def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
     return ((v << r) | (v >> (32 - r))) & MASK32
 
 
+def _threefry2x32_numpy(k0, k1, x0, x1):
+    """:func:`threefry2x32` of CPU tensors in numpy's ``uint32``, which
+    wraps and shifts as the cipher needs: the same words with no masking,
+    at a fraction of torch's per-op cost on small tensors."""
+    words = np.broadcast_arrays(*(np.asarray(w, dtype=np.uint32)
+                                  for w in (k0, k1, x0, x1)))
+    shape = words[0].shape
+    k0, k1, x0, x1 = (w.reshape(-1) for w in words)
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(_PARITY))
+    x0 = x0 + ks[0]
+    x1 = x1 + ks[1]
+    for g in range(5):
+        rots = _ROT_A if g % 2 == 0 else _ROT_B
+        for r in rots:
+            x0 = x0 + x1
+            x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+        x0 = x0 + ks[(g + 1) % 3]
+        x1 = x1 + ks[(g + 2) % 3] + np.uint32(g + 1)
+    return tuple(torch.from_numpy(w.astype(np.int64).reshape(shape))
+                 for w in (x0, x1))
+
+
 def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32, 20 rounds (Random123): encrypt counter words
     ``(x0, x1)`` under key ``(k0, k1)``. Words are int64 tensors holding
-    values in ``[0, 2^32)``; all four broadcast together."""
+    values in ``[0, 2^32)``; all four broadcast together. On the CPU the
+    rounds run in numpy's ``uint32``, on the card in torch's ``int64``:
+    bit for bit the same words."""
+    if all(not isinstance(w, torch.Tensor) or w.device.type == "cpu"
+           for w in (k0, k1, x0, x1)):
+        return _threefry2x32_numpy(k0, k1, x0, x1)
+    return _threefry2x32_torch(k0, k1, x0, x1)
+
+
+def _threefry2x32_torch(k0, k1, x0, x1):
+    """:func:`threefry2x32` in torch's ``int64``, masked to 32 bits after
+    each add and rotation: the body that runs on the card."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & MASK32
     x1 = (x1 + ks[1]) & MASK32

@@ -22,6 +22,8 @@ __all__ = [
     "Address",
     "AddressComponent",
     "static_check_is_concrete",
+    "static_check_supports_grad",
+    "to_float",
 ]
 
 #: A key: a tensor whose last axis holds two 32-bit words (see core/random.py).
@@ -46,3 +48,18 @@ def static_check_is_concrete(x: Any) -> bool:
     """True iff ``x`` is a concrete value: always, in eager PyTorch."""
     return True
 
+
+def static_check_supports_grad(v: Any) -> bool:
+    """True iff ``v`` is a floating-point value (a differentiable leaf):
+    a float tensor or array, or a Python float."""
+    if isinstance(v, torch.Tensor):
+        return v.is_floating_point()
+    if isinstance(v, np.ndarray | np.generic):
+        return np.issubdtype(v.dtype, np.floating)
+    return isinstance(v, float)
+
+
+def to_float(x: ArrayLike) -> torch.Tensor:
+    """``x`` as a tensor of the default float type (float32), on its own
+    device if it is a tensor."""
+    return torch.as_tensor(x, dtype=torch.get_default_dtype())

@@ -210,14 +210,16 @@ __all__ = [
 ]
 
 
-def _device(device) -> torch.device:
-    """The device an entry point runs on: the card unless the caller
-    names another. Asking for a card where there is none raises."""
+def _device(device=None) -> torch.device:
+    """The device an entry point (or a documented program) runs on: the
+    card unless the caller names another. Asking for a card where there
+    is none raises; nothing falls back to the CPU."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "genjax_torch entry points run on the CUDA card by default and "
-            "none is available; pass device='cpu' to run on the CPU")
+            "genjax_torch entry points and programs run on the CUDA card by "
+            "default and none is available; pass device='cpu' to run on the "
+            "CPU")
     return dev
 
 

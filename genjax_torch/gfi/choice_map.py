@@ -7,9 +7,10 @@ an :class:`Indexed` node with a Python-int address folds to a plain
 slice; a tensor address lowers to ``argmax`` + gather + mask as in JAX.
 Under a key batch the lane axis of an :class:`Indexed` node sits behind
 the batch axes, at the node's ``batch_rank``. ``partition_values``
-serves the gradient samplers. The JAX package's ``lanes_leading`` has no
-counterpart: a choice map rebuilt under more batch axes records them in
-each ``Indexed`` node's ``batch_rank`` instead of moving axes.
+serves the gradient samplers. The port's own combinators record the
+batch in each ``Indexed`` node's ``batch_rank``; ``lanes_leading`` serves
+a choice map whose leaves were stacked under batch axes by hand (the
+JAX package's layout after ``jax.vmap``) and moves the lanes ahead again.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ __all__ = [
     "ChmSel",
     "C",
     "Indexed",
+    "lanes_leading",
     "lift_values",
     "partition_values",
 ]
@@ -367,6 +369,27 @@ def _lane_slice(tree, pos, batch_rank: int):
     return tree_map(pick, tree)
 
 
+def _lane_dropped(chm, r: int):
+    """``chm`` after :func:`_lane_slice` took one lane of the axis at
+    ``r`` away: a nested :class:`Indexed` node counted that axis among its
+    batch axes (its ``batch_rank`` exceeds ``r``) and has one fewer."""
+    if isinstance(chm, Indexed):
+        rank = chm.batch_rank - 1 if chm.batch_rank > r else chm.batch_rank
+        return Indexed(_lane_dropped(chm.inner, r), chm.idx, chm.n, rank,
+                       chm.per_execution)
+    if isinstance(chm, Static):
+        return Static(tuple(_lane_dropped(c, r) for c in chm.submaps),
+                      chm.keys)
+    if isinstance(chm, Or):
+        return Or(_lane_dropped(chm.left, r), _lane_dropped(chm.right, r))
+    if isinstance(chm, Switch):
+        return Switch(chm.idx, tuple(_lane_dropped(b, r)
+                                     for b in chm.branches))
+    if isinstance(chm, Filtered):
+        return Filtered(_lane_dropped(chm.inner, r), chm.selection)
+    return chm
+
+
 def lift_values(chm: "ChoiceMap", batch: tuple, device=None,
                 outer: tuple = ()) -> "ChoiceMap":
     """``chm`` with every value given the batch axes ``batch`` as a
@@ -460,7 +483,9 @@ class Indexed(ChoiceMap):
 
     def _get_idx(self) -> torch.Tensor:
         if self.idx is None:
-            return torch.arange(self._n())
+            leaf = self._lane_leaf()
+            return torch.arange(self._n(), device=None if leaf is None
+                                else leaf.device)
         return _t(self.idx)
 
     def get_value(self):
@@ -493,7 +518,7 @@ class Indexed(ChoiceMap):
             hits = torch.nonzero(idx.cpu() == comp).flatten()
             if len(hits) == 0:
                 return Empty()
-            return _lane_slice(self.inner, int(hits[0]), r)
+            return _lane_dropped(_lane_slice(self.inner, int(hits[0]), r), r)
         if isinstance(comp, slice):
             if idx.ndim == 0:
                 return self
@@ -501,15 +526,30 @@ class Indexed(ChoiceMap):
                 return self.inner
             return Indexed(_lane_slice(self.inner, comp, r), idx[comp],
                            batch_rank=r)
-        comp = _t(comp)
-        idx = idx.to(comp.device)
+        # The lane lookup runs where the lanes live (a Python or CPU
+        # index meets a card trace on the card).
+        leaf = self._lane_leaf()
+        dev = idx.device if leaf is None else leaf.device
+        comp, idx = _t(comp).to(dev), idx.to(dev)
         if idx.ndim == 0:
-            return self.inner.mask(comp == idx)
+            extra = comp.ndim - r
+            inner = self.inner
+            if r and extra > 0:
+                # comp's lanes sit behind the batch axes: give the
+                # one-address values singleton lane axes there, so that
+                # they broadcast against the per-lane flags.
+                inner = tree_map(
+                    lambda v: v.reshape(tuple(v.shape[:r]) + (1,) * extra
+                                        + tuple(v.shape[r:]))
+                    if isinstance(v, torch.Tensor) and v.ndim >= r else v,
+                    inner)
+            return inner.mask(comp == idx)
         if comp.ndim > 0 and r:
             # One lane per execution: comp has the batch's shape.
             eq = comp[..., None] == idx
             pos = torch.argmax(eq.to(torch.int32), dim=-1)
-            return _lane_slice(self.inner, pos, r).mask(eq.any(dim=-1))
+            return _lane_dropped(_lane_slice(self.inner, pos, r), r).mask(
+                eq.any(dim=-1))
         if comp.ndim > 0:
             eq = idx[None, :] == comp[:, None]
             pos = torch.argmax(eq.to(torch.int32), dim=1)
@@ -518,7 +558,7 @@ class Indexed(ChoiceMap):
         eq = idx == comp
         pos = torch.argmax(eq.to(torch.int32))
         found = eq.any()
-        return _lane_slice(self.inner, pos, r).mask(found)
+        return _lane_dropped(_lane_slice(self.inner, pos, r), r).mask(found)
 
     def filter(self, selection) -> ChoiceMap:
         if not isinstance(selection, Selection):
@@ -600,6 +640,63 @@ class Filtered(ChoiceMap):
     def get_inner_map(self, comp) -> ChoiceMap:
         sub = self.inner.get_inner_map(comp)
         return sub.filter(self.selection.get_subselection(comp))
+
+
+def lanes_leading(chm: ChoiceMap, batch_ndim: int) -> ChoiceMap:
+    """Rearrange a choice map whose leaves carry ``batch_ndim`` stacked
+    leading axes (per-execution results stacked by hand, or what
+    ``jax.vmap`` returns in the JAX package) so that :class:`Indexed` lane
+    axes come before the batch axes again: a leaf under ``d`` nested
+    Indexed nodes gets the layout ``(lane_1, ..., lane_d, B_1, ..., B_k,
+    event...)`` and address indexing works as usual, with the batch axes
+    trailing on the returned values. Leaves with fewer than ``batch_ndim +
+    depth`` axes are left untouched. An explicit ``idx`` must be the same
+    across the batch (one Indexed node holds one address per lane) and
+    keeps its first batch entry; otherwise this raises ``ValueError``."""
+
+    def fix_leaf(x, depth):
+        if not isinstance(x, torch.Tensor) or x.ndim < batch_ndim + depth:
+            return x
+        return torch.movedim(x, tuple(range(batch_ndim)),
+                             tuple(range(depth, depth + batch_ndim)))
+
+    def walk(node, depth):
+        if isinstance(node, Empty):
+            return node
+        if isinstance(node, Choice):
+            return Choice(tree_map(lambda x: fix_leaf(x, depth), node.v))
+        if isinstance(node, Static):
+            return Static(tuple(walk(s, depth) for s in node.submaps),
+                          node.keys)
+        if isinstance(node, Or):
+            return Or(walk(node.left, depth), walk(node.right, depth))
+        if isinstance(node, Indexed):
+            idx = node.idx
+            if idx is not None:
+                idx = _t(idx)
+                if idx.ndim >= batch_ndim + 1:
+                    flat = idx.reshape((-1,) + tuple(idx.shape[batch_ndim:]))
+                    if not bool((flat == flat[0]).all()):
+                        raise ValueError(
+                            "lanes_leading: explicit Indexed addresses vary "
+                            "across the batch axis — per-lane-varying "
+                            "dynamic addresses are not representable by one "
+                            "Indexed node; build per-lane constraints with "
+                            "vmap instead.")
+                    idx = idx[(0,) * batch_ndim]
+            return Indexed(walk(node.inner, depth + 1), idx, node.n)
+        if isinstance(node, Switch):
+            idx = node.idx
+            if isinstance(idx, torch.Tensor) and idx.ndim:
+                idx = fix_leaf(idx, depth)
+            return Switch(idx, tuple(walk(b, depth) for b in node.branches))
+        if isinstance(node, Filtered):
+            sel = tree_map(lambda x: fix_leaf(x, depth), node.selection)
+            return Filtered(walk(node.inner, depth), sel)
+        raise NotImplementedError(
+            f"lanes_leading through {type(node).__name__} nodes.")
+
+    return walk(chm, 0)
 
 
 def partition_values(chm: ChoiceMap):

@@ -15,6 +15,7 @@ from genjax_torch.core.compiler.staging import FlagOp, tree_choose
 from genjax_torch.core.pytree import (
     Pytree,
     tree_flatten,
+    tree_leaves,
     tree_map,
     tree_unflatten,
 )
@@ -30,6 +31,15 @@ def _t(x, like=None) -> torch.Tensor:
         return x
     dev = like.device if isinstance(like, torch.Tensor) else None
     return torch.as_tensor(x, device=dev)
+
+
+def _to_flag_rank(x: torch.Tensor, flag: Flag) -> torch.Tensor:
+    """``x`` as a value under ``flag``: the flag's axes lead the value's,
+    so a value with fewer axes than its flag lacks the trailing (lane)
+    ones and is the same in every lane; it gains them as singletons."""
+    if isinstance(flag, bool) or x.ndim >= _t(flag).ndim:
+        return x
+    return x.reshape(tuple(x.shape) + (1,) * (_t(flag).ndim - x.ndim))
 
 
 @Pytree.dataclass
@@ -97,12 +107,14 @@ class Mask(Pytree, Generic[T]):
         return self.flag
 
     @staticmethod
-    def _broadcast_values(a, b):
-        """Leafwise broadcast, so that per-lane and scalar values of the
-        two sides select cleanly."""
-        la, spec_a = tree_flatten(a)
-        lb, spec_b = tree_flatten(b)
-        pairs = [torch.broadcast_tensors(_t(x, y), _t(y, x))
+    def _broadcast_values(a: "Mask", b: "Mask"):
+        """The two masks' values, leafwise broadcast, so that per-lane and
+        lane-invariant values of the two sides select cleanly: each leaf
+        first takes its own flag's rank (:func:`_to_flag_rank`)."""
+        la, spec_a = tree_flatten(a.value)
+        lb, spec_b = tree_flatten(b.value)
+        pairs = [torch.broadcast_tensors(_to_flag_rank(_t(x, y), a.flag),
+                                         _to_flag_rank(_t(y, x), b.flag))
                  for x, y in zip(la, lb)]
         return (tree_unflatten([p[0] for p in pairs], spec_a),
                 tree_unflatten([p[1] for p in pairs], spec_b))
@@ -112,6 +124,11 @@ class Mask(Pytree, Generic[T]):
         if isinstance(flag, bool):
             return va if flag else vb
         f = _t(flag)
+        # The flag joins the values where they live (a flag made from a
+        # CPU index can meet card values).
+        dev = next((x.device for x in tree_leaves((va, vb))
+                    if isinstance(x, torch.Tensor)), f.device)
+        f = f.to(dev)
         if f.ndim == 0:
             return tree_choose(torch.where(f, 0, 1), [va, vb])
 
@@ -125,14 +142,14 @@ class Mask(Pytree, Generic[T]):
         """Valid if either is; prefers ``self``'s value when both are."""
         assert isinstance(other, Mask)
         new_flag = FlagOp.or_(self.flag, other.flag)
-        va, vb = Mask._broadcast_values(self.value, other.value)
+        va, vb = Mask._broadcast_values(self, other)
         return Mask(Mask._select_by_flag(self.flag, va, vb), new_flag)
 
     def __xor__(self, other: "Mask[T]") -> "Mask[T]":
         """Valid iff exactly one is."""
         assert isinstance(other, Mask)
         new_flag = FlagOp.xor_(self.flag, other.flag)
-        va, vb = Mask._broadcast_values(self.value, other.value)
+        va, vb = Mask._broadcast_values(self, other)
         return Mask(Mask._select_by_flag(self.flag, va, vb), new_flag)
 
     @staticmethod

@@ -27,6 +27,10 @@ from genjax_torch.inference.diagnostics import (
     split_rhat,
     summarize,
 )
+from genjax_torch.inference.exact_testbed import (
+    DiscreteHMMInferenceProblem,
+    build_test_against_exact_inference,
+)
 from genjax_torch.inference.enumerative import (
     EnumerationResult,
     enumerate_posterior,
@@ -67,6 +71,7 @@ from genjax_torch.inference.transforms import (
 
 from genjax_torch.inference.pf import (
     FilterState,
+    ParticleFilter,
     bootstrap_filter,
     fused_particle_filter,
     particle_filter,
@@ -161,7 +166,10 @@ __all__ = [
     "summarize",
     "unconstrain_choices",
     "warmup_chains",
+    "DiscreteHMMInferenceProblem",
     "FilterState",
+    "ParticleFilter",
+    "build_test_against_exact_inference",
     "Importance",
     "ImportanceK",
     "Marginal",

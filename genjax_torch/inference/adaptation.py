@@ -96,6 +96,15 @@ def welford_update_moments(state: WelfordState, mean_b: torch.Tensor,
     return WelfordState(mean, m2, total)
 
 
+def welford_update_batch(state: WelfordState,
+                         zs: torch.Tensor) -> WelfordState:
+    """Fold a whole (chains, D) batch in: the cross-chain reduction."""
+    n_b = zs.shape[0]
+    mean_b = zs.mean(dim=0)
+    m2_b = ((zs - mean_b) ** 2).sum(dim=0)
+    return welford_update_moments(state, mean_b, m2_b, n_b)
+
+
 def welford_variance(state: WelfordState) -> torch.Tensor:
     return state.m2 / torch.clamp(state.count - 1.0, min=1.0)
 

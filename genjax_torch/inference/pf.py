@@ -28,6 +28,7 @@ from genjax_torch.ops.fused_step import CudaModel, fused_step
 
 __all__ = [
     "FilterState",
+    "ParticleFilter",
     "particle_filter",
     "bootstrap_filter",
     "fused_particle_filter",
@@ -225,3 +226,19 @@ def bootstrap_filter(
         return new_state, observation_logpdf(new_state, obs_t)
 
     return particle_filter(init, step, n_particles, ess_threshold, resampling)
+
+
+class ParticleFilter:
+    """Object façade over :func:`particle_filter` for repeated runs: the
+    filter is built once and ``run`` / ``__call__`` apply it to
+    ``(key, observations)``."""
+
+    def __init__(self, init, step, n_particles, **kwargs):
+        self._run = particle_filter(init, step, n_particles, **kwargs)
+        self.n_particles = n_particles
+
+    def run(self, key, observations):
+        return self._run(key, observations)
+
+    def __call__(self, key, observations):
+        return self._run(key, observations)

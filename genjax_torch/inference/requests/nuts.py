@@ -44,6 +44,13 @@ from genjax_torch.gfi.selection import Selection
 __all__ = ["NUTS", "nuts_kernel", "NUTSInfo", "check_float_latents"]
 
 
+def jtu_select(pred, a, b):
+    """Leafwise ``where(pred, a, b)`` over two pytrees of one structure;
+    ``pred`` (one flag per chain) broadcasts against the leading chain
+    axes of each leaf."""
+    return tree_where(pred, a, b)
+
+
 def _any(flags: torch.Tensor) -> bool:
     """Whether a chain is still active: one read of a device flag by the
     host, counted in ``nuts_kernel.host_syncs``."""

@@ -4,8 +4,10 @@ from genjax_torch.lang.static import (
     AddressReuse,
     Fn,
     MissingAddress,
+    StaticRequest,
     StaticTrace,
     gen,
 )
 
-__all__ = ["AddressReuse", "Fn", "MissingAddress", "StaticTrace", "gen"]
+__all__ = ["AddressReuse", "Fn", "MissingAddress", "StaticRequest",
+           "StaticTrace", "gen"]

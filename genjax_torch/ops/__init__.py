@@ -4,3 +4,7 @@ PyTorch version in the same module: ``cdf_counts``
 the model compiled in from ``csrc/models/``), ``logmatmul``
 (``csrc/logmatmul.cu``) and ``expand_adaptive``
 (``csrc/expand_adaptive.cu``)."""
+
+from genjax_torch.ops.logmatmul import log_matmul
+
+__all__ = ["log_matmul"]

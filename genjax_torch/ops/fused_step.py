@@ -32,9 +32,11 @@ from typing import NamedTuple
 import torch
 
 from genjax_torch.core import random
+from genjax_torch.core.random import threefry2x32
 
 __all__ = [
     "CudaModel",
+    "threefry2x32",
     "normal_from_counter",
     "fused_step_plain",
     "fused_step",

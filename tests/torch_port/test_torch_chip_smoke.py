@@ -280,7 +280,7 @@ def test_phase_31_rehearsal(monkeypatch, capsys):
         "smc2": (32, 32, 12), "pt_timed": 3, "pt_profiled": 2,
         "elastic": (2048, 16, 4, 2, 13), "trace_pf": (1024, 4)})
     monkeypatch.setattr(chip_smoke, "PT_SIZE", (16, 4, 20, 10))
-    monkeypatch.setattr(chip_smoke, "PGAS_SIZE", (4, 16, 8))
+    monkeypatch.setattr(chip_smoke, "PGAS_SHARDED_SIZE", (4, 16, 8))
     # On the CPU no wrapper counts its launches: count the calls the CDF
     # kernel serves on the card.
     launches = {"cdf_counts": 0}
@@ -302,7 +302,7 @@ def test_phase_31_rehearsal(monkeypatch, capsys):
     dev = torch.device("cpu")
     n_theta, n_x, steps = chip_smoke.SHARDED_SIZE["smc2"]
     ladders, rungs, keep, burn = chip_smoke.PT_SIZE
-    n_chains, n_part, sweeps = chip_smoke.PGAS_SIZE
+    n_chains, n_part, sweeps = chip_smoke.PGAS_SHARDED_SIZE
     pgas = particle_gibbs(*E.pgas_model()[:3], n_part, sweeps,
                           trans_logpdf=E.pgas_model()[3])
     refs = {"smc2": E.build_smc2(n_theta, n_x, steps, device=dev)[0](
@@ -330,4 +330,26 @@ def test_phase_31_rehearsal(monkeypatch, capsys):
     assert el["clean_launches"]["cdf_counts"] >= 1
     assert out["trace"]["kernel_events"] >= 1
     assert not torch.distributed.is_initialized()
+    json.dumps(chip_smoke.finite_or_none(out))
+
+
+def test_phase_32_rehearsal(capsys):
+    """Phase 32's pool and checks on the CPU with three programs (one at
+    its REHEARSAL sizes): each held to its CPU reference, the closed
+    form of ex01, the CDF kernel's calls counted (on the CPU no wrapper
+    counts, so none is required), and the pool stopped."""
+    names = ["ex01_beta_bernoulli_sir", "cb04_speed_gains",
+             "ex12_particle_gibbs"]
+    started = chip_smoke.start_examples(names, device="cpu")
+    try:
+        out = chip_smoke.examples_phase("cpu", started)
+    finally:
+        chip_smoke.stop_examples(started)
+    text = capsys.readouterr().out
+    assert set(out["programs"]) == set(names)
+    for n in names:
+        assert f"[32 {n}]" in text
+    assert out["programs"]["ex12_particle_gibbs"]["sizes"] != "documented"
+    assert out["programs"]["ex01_beta_bernoulli_sir"]["sizes"] \
+        == "documented"
     json.dumps(chip_smoke.finite_or_none(out))

@@ -75,6 +75,20 @@ def test_threefry_words_and_uniforms_bitwise():
     np.testing.assert_allclose(z, zj, rtol=1e-5, atol=1e-6)
 
 
+def test_threefry_torch_body_words_bitwise():
+    """The torch body of threefry2x32 (the card's; a CPU tensor takes the
+    numpy body) on CPU tensors against the JAX package's words."""
+    seeds = np.asarray(jax.random.key_data(KEY))
+    ctr = np.arange(N, dtype=np.uint32)
+    j0, j1 = jax_threefry2x32(jnp.uint32(seeds[0]), jnp.uint32(seeds[1]),
+                              jnp.asarray(ctr), jnp.zeros(N, jnp.uint32))
+    st = key_from_numpy(seeds)
+    t0, t1 = R._threefry2x32_torch(st[0], st[1], torch.arange(N),
+                                   torch.zeros(N, dtype=torch.int64))
+    np.testing.assert_array_equal(t0.numpy().astype(np.uint32), np.asarray(j0))
+    np.testing.assert_array_equal(t1.numpy().astype(np.uint32), np.asarray(j1))
+
+
 @pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
 def test_plain_vs_jax_reference_and_pallas(state_dtype):
     xs, lw = _inputs()

@@ -50,6 +50,43 @@ def test_threefry_random123_vectors(key, ctr, want):
     assert (int(z0), int(z1)) == want
 
 
+@pytest.mark.parametrize("key,ctr,want", [
+    ((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+    ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+     (0x1CB996FC, 0xBB002BE7)),
+    ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+     (0xC4923A9C, 0x483DF7A0)),
+])
+def test_threefry_torch_body_random123_vectors(key, ctr, want):
+    """The torch body, which runs on the card (a CPU tensor takes the
+    numpy body), on CPU tensors."""
+    t = lambda v: torch.tensor(v, dtype=torch.int64)
+    z0, z1 = R._threefry2x32_torch(t(key[0]), t(key[1]), t(ctr[0]),
+                                   t(ctr[1]))
+    assert (int(z0), int(z1)) == want
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_key_layer_through_torch_body_bitwise(seed, monkeypatch):
+    """split, fold_in, bits and uniform with every threefry call taking
+    the torch body, against jax.random."""
+    monkeypatch.setattr(R, "_threefry2x32_numpy", R._threefry2x32_torch)
+    k, kt = _pair(seed)
+    for num in (2, 7):
+        want = np.asarray(jax.random.key_data(jax.random.split(k, num)))
+        np.testing.assert_array_equal(R.split(kt, num).numpy(), want)
+    for d in (0, 12345, 2**32 - 1):
+        want = np.asarray(jax.random.key_data(jax.random.fold_in(k, d)))
+        np.testing.assert_array_equal(R.fold_in(kt, d).numpy(), want)
+    for shape in SHAPES:
+        np.testing.assert_array_equal(
+            R.bits(kt, shape).numpy().astype(np.uint32),
+            np.asarray(jax.random.bits(k, shape)))
+        np.testing.assert_array_equal(
+            R.uniform(kt, shape).numpy(),
+            np.asarray(jax.random.uniform(k, shape)))
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_split_and_fold_in_bitwise(seed):
     k, kt = _pair(seed)
