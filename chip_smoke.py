@@ -6,15 +6,19 @@ time its kernels.
 Phases (each prints one line; any failure exits non-zero):
   1. card: name and power limit from nvidia-smi;
   2. build: the four CUDA C++ kernels (CDF->counts, log-matmul,
-     expand_adaptive, and the fused step once per model header: tracking
-     and linear), from the sources in the checkout, into
-     genjax_torch/_build/: five nvcc processes, all started together;
+     expand_adaptive, and the fused step once per model header: the
+     hand-written tracking and linear ones, and the three that
+     genjax_torch/ops/fused_model.py generates from phase 33's torch
+     forms), from the sources in the checkout, into genjax_torch/_build/:
+     eight nvcc processes, all started together, each generated model's
+     nvcc seconds;
   3. the CDF->counts kernel against its plain version in five weight
      regimes at n = 1, 4097, 2^19, 2^20, a ragged size and 2^24 (more
      tiles than the card holds at once), and its device ops per call;
   4. the fused-step kernel: its threefry words bit for bit against
      core.random (through the library's second entry point), then against
-     its plain version at 2^20, f32 and bf16 state, and at a ragged size;
+     its plain version at 2^20, f32 and bf16 state, and at a ragged size,
+     with tracking.cuh and with each generated header;
   5. SIR through entry() at K = 64 and K = 2^16;
   6. bench config 4 (2^20 particles x 32 steps) through build_pf and
      build_pf_fused, with each run's kernel launch counts, and the
@@ -28,7 +32,9 @@ Phases (each prints one line; any failure exits non-zero):
      normals; B = 70000 (past the grid's z extent); unbatched; strided
      operands; the parallel filter's own first-level operands (511,
      1024, 1024); an empty batch (no launch); the -1e30 input and an all
-     -inf row;
+     -inf row; and its gradient (torch.autograd and torch.func) against
+     autograd of the plain version at (8, 128, 128) and through the
+     parallel filter at S = 128;
   9. the expand_adaptive kernel bit for bit against its plain version
      and repeat_interleave at 2^20, 2^20 + 37 and 2^24, in the JAX test
      file's regimes;
@@ -187,6 +193,20 @@ Phases (each prints one line; any failure exits non-zero):
      and each program's wall. The pool's workers share the card and the
      host with phases 14-31, whose times are so contended (the record's
      "contended").
+ 33. the fused filter with no hand-written header (cuda_model=None: the
+     CUDA form generated from the torch form) at config 4's width, 2^20 x
+     32: the stochastic-volatility model over 8 keys against the general
+     driver on the same model (4 se); the JAX test's linear-Gaussian
+     lambdas with a, q, r = 0.7, 0.5, 0.4 against Kalman (0.1), and with
+     other constants through the same library, unbuilt; the tracking
+     model's torch form against tracking.cuh on one key (phase 6's
+     0.25); the linear lambdas reading a from a 0-d tensor on the card
+     and the rest from a list, changed between two runs of one filter,
+     each run against its own Kalman (0.1) with one library. Each run:
+     32 fused launches from the generated library, one CDF launch a
+     resample, log Z, particle-steps/s; the trace a run costs. Then each
+     generated kernel's time a call at 2^20 beside tracking.cuh's, in
+     turns.
 Phases 24-27 each print the wall of a run (the median of 3), its rate,
 a profiled short run's device-busy time, idle share and device ops a
 step, and the peak device memory; none launches one of the four kernels,
@@ -3893,6 +3913,416 @@ def stop_examples(started: dict) -> None:
     pool.shutdown(wait=True, cancel_futures=True)
 
 
+def log_matmul_grad_check(dev, card: str) -> dict:
+    """Phase 8's gradient checks of the log-matmul kernel's path."""
+    import torch
+
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+    from genjax_torch.lang.distributions.discrete_hmm import (
+        forward_filter_parallel)
+    from genjax_torch.ops import logmatmul as lm
+
+    # The kernel's gradient (the backward of its autograd Function)
+    # against autograd of the plain version on the same operands and
+    # cotangent: through torch.autograd.grad and torch.func.grad at (8,
+    # 128, 128), 1e-5 relative + 1e-5 absolute as the forward (both take
+    # the same products; only the order of a few sums differs); and
+    # d log p / d transition_logits through the parallel filter at S =
+    # 128, T = 256 against the same filter with the plain version swapped
+    # in, 1e-4 relative + 1e-4 absolute: each scan level's inputs carry
+    # the kernel's forward error of up to 1e-5 into the next level's
+    # exponentials.
+    x8, y8, g8 = (2.0 * random.normal(k, (8, 128, 128)) for k in
+                  random.split(random.key(61, device=dev), 3).unbind(-2))
+    xr, yr = x8.clone().requires_grad_(), y8.clone().requires_grad_()
+    out8 = lm.log_matmul(xr, yr)
+    check(out8.grad_fn is not None,
+          "log_matmul: the kernel's result carries no gradient")
+    grads = {"autograd": torch.autograd.grad(out8, (xr, yr), g8),
+             "func": torch.func.grad(
+                 lambda a, b: (lm.log_matmul(a, b) * g8).sum(),
+                 argnums=(0, 1))(x8, y8)}
+    xp, yp = x8.clone().requires_grad_(), y8.clone().requires_grad_()
+    want8 = torch.autograd.grad(lm.log_matmul_plain(xp, yp), (xp, yp), g8)
+    lm_grad_err = {}
+    for how, got in grads.items():
+        err = max(float(((a - b).abs() - 1e-5 * b.abs()).max())
+                  for a, b in zip(got, want8))
+        check(err <= 1e-5, f"log_matmul gradient ({how}) at (8, 128, 128): "
+              f"|kernel's - plain's| - 1e-5 |plain's| = {err}")
+        lm_grad_err[how] = err
+    dhmm = sys.modules["genjax_torch.lang.distributions.discrete_hmm"]
+    _, problem_g = E.build_hmm_parallel(128, 256, device=dev)
+    cfg_g, obs_g = problem_g.config, problem_g.observations
+
+    def filter_grad():
+        tr = cfg_g.transition_logits.clone().requires_grad_()
+        c = type(cfg_g)(cfg_g.prior_logits, tr, cfg_g.observation_logits)
+        return torch.autograd.grad(forward_filter_parallel(c, obs_g)[1],
+                                   tr)[0]
+
+    before = lm.log_matmul.launches
+    g_kernel = filter_grad()
+    check(lm.log_matmul.launches > before,
+          "log_matmul: the filter's gradient run launched no kernel")
+    kernel_path = dhmm.log_matmul
+    dhmm.log_matmul = lm.log_matmul_plain
+    try:
+        g_plain = filter_grad()
+    finally:
+        dhmm.log_matmul = kernel_path
+    torch.cuda.synchronize()
+    filter_gerr = float(((g_kernel - g_plain).abs()
+                         - 1e-4 * g_plain.abs()).max())
+    check(bool(torch.isfinite(g_kernel).all()) and filter_gerr <= 1e-4,
+          f"log_matmul: the parallel filter's gradient, |kernel path's - "
+          f"plain's| - 1e-4 |plain's| = {filter_gerr}")
+    print(f"[8 log_matmul gradient] (8, 128, 128): autograd and torch.func "
+          f"of the kernel path against autograd of plain, max |diff| - "
+          f"1e-5 |plain| = {lm_grad_err} (bound 1e-5); the parallel "
+          f"filter's d log p / d transition_logits at S = 128, T = 256: "
+          f"max |diff| - 1e-4 |plain| = {filter_gerr:.3g} (bound 1e-4), "
+          f"max |grad| {float(g_plain.abs().max()):.4g}", flush=True)
+    return {"grad_err_8x128": lm_grad_err, "filter_grad_err": filter_gerr}
+
+
+# xs/lw: the kernel's sqrt/log1p/cos are the card's libdevice, its
+# exp the approximate instruction, not torch's, and tracking.cuh's
+# divisions the fast ones, so an element may move by a few ulp,
+# amplified by the model (x^2 / 20, then a square): xs to 1e-3 and lw
+# to 1e-2 absolute, on values of order 10 and 100. The generated
+# models are held to the same bounds.
+def fused_vs_plain(label, propagate, loglik, model, step_inputs) -> float:
+    """Phase 4: the fused-step kernel with ``model`` against its plain
+    version on ``step_inputs`` (the key's words, 2^20 states and
+    log-weights, the observation): one step at 2^20 in f32 and bf16 state
+    and at a ragged size; the largest f32 error."""
+    import torch
+
+    from genjax_torch.ops import fused_step as fs
+
+    seeds, xs0, lw0, obs = step_inputs
+    n = xs0.shape[0]
+    f32_err = 0.0
+    for dtype, tol, size in ((torch.float32, 1e-3, n),
+                             (torch.bfloat16, 1e-3, n),
+                             (torch.float32, 1e-3, 1_000_003)):
+        xs, lw_s = xs0[:size].to(dtype), lw0[:size]
+        out_k, again = (fs.fused_step(
+            seeds, xs, lw_s, obs, propagate, loglik, cuda_model=model,
+            state_dtype=dtype) for _ in range(2))
+        out_p = fs.fused_step_plain(seeds, xs, lw_s, obs, propagate,
+                                    loglik, state_dtype=dtype)
+        torch.cuda.synchronize()
+        check(all(bool(torch.equal(a, b)) for a, b in zip(out_k, again)),
+              f"fused_step {label} {dtype} n={size}: two calls differ")
+        check(out_k[0].dtype == dtype and out_k[1].dtype == torch.float32,
+              f"fused_step {label} output dtypes")
+        x_err = float((out_k[0].float() - out_p[0].float()).abs().max())
+        lw_err = float((out_k[1] - out_p[1]).abs().max())
+        # bf16 state: one rounding of x_new either side of a tie.
+        x_tol = tol if dtype == torch.float32 else 0.0625
+        check(x_err <= x_tol, f"fused_step {label} {dtype} xs err {x_err}")
+        check(lw_err <= tol * 10,
+              f"fused_step {label} {dtype} lw err {lw_err}")
+        lse_err = abs(float(out_k[2] - out_p[2]))
+        ess_rel = abs(float(out_k[3] - out_p[3])) / float(out_p[3])
+        check(lse_err < 1e-4,
+              f"fused_step {label} {dtype} lse err {lse_err}")
+        check(ess_rel < 1e-4,
+              f"fused_step {label} {dtype} ess rel err {ess_rel}")
+        if dtype == torch.float32:
+            f32_err = max(f32_err, x_err, lw_err)
+        print(f"[4 fused_step {label} {str(dtype)[6:]} n={size}] "
+              f"|dx|={x_err:.3g} |dlw|={lw_err:.3g} |dlse|={lse_err:.3g} "
+              f"ess rel={ess_rel:.3g}; two calls equal bit for bit",
+              flush=True)
+    return f32_err
+
+
+#: Phase 33: models with no hand-written CUDA header through the public
+#: fused filter, ``cuda_model`` left None, at config 4's width (particles,
+#: steps): the stochastic-volatility model (Kim, Shephard and Chib 1998)
+#: over ``GEN_SV_KEYS`` keys against the general driver on the same model;
+#: the JAX test's linear-Gaussian lambdas with constants ``linear.cuh``
+#: does not carry, against Kalman, and again with ``GEN_LINEAR_OTHER`` (the
+#: same source: no build); the tracking model's torch form beside
+#: ``tracking.cuh`` on one key; the linear lambdas with constants read
+#: live (:func:`live_linear`), changed between two runs of one filter.
+GEN_SIZE = (1 << 20, 32)
+GEN_SV_KEYS = 8
+GEN_LINEAR = (0.7, 0.5, 0.4)
+GEN_LINEAR_OTHER = (0.6, 0.8, 0.25)
+#: The JAX test's Kalman bound (tests/ops/test_fused_step.py:138) and
+#: phase 6's bound between two config-4 filters.
+GEN_LINEAR_BOUND = 0.1
+GEN_TRACKING_BOUND = 0.25
+
+
+def live_linear(dev):
+    """The linear-Gaussian lambdas reading ``a`` from a 0-d tensor on
+    ``dev`` (set in place) and the rest from a list (rebound), set to
+    ``GEN_LINEAR``: ``(propagate, loglik, set_constants)``."""
+    import torch
+
+    a_t = torch.zeros((), device=dev)
+    rest = [0.0, 1.0, 0.0]
+
+    def propagate(x, e):
+        return a_t * x + rest[0] * e
+
+    def loglik(x, y):
+        return -0.5 * (y - x) ** 2 / rest[1] - rest[2]
+
+    def set_constants(a, q, r):
+        a_t.fill_(a)
+        rest[:] = [math.sqrt(q), r, 0.5 * math.log(2 * math.pi * r)]
+
+    set_constants(*GEN_LINEAR)
+    return propagate, loglik, set_constants
+
+
+def generated_models(dev) -> dict:
+    """The torch forms of phase 33's models, by label: ``(propagate,
+    loglik)``."""
+    from genjax_torch import entry as E
+
+    return {"sv": E.sv_model(), "linear": E.linear_model(*GEN_LINEAR),
+            "tracking": (E.tracking_propagate, E.tracking_loglik),
+            "live": live_linear(dev)[:2]}
+
+
+def generated_phase(dev, card: str, zero_counts, counts, gen: dict,
+                    step_inputs: tuple) -> dict:
+    """Phase 33: the fused filter with the CUDA forms generated from the
+    torch forms (``gen``: label -> CudaModel, built in phase 2), each run
+    counted from 0: 32 fused launches from the model's generated library
+    and one CDF launch a resample; and each generated kernel's time a
+    call at 2^20 beside ``tracking.cuh``'s, in turns."""
+    import torch
+
+    from genjax_torch import entry as E
+    from genjax_torch.core import random
+    from genjax_torch.inference import pf as pf_mod
+    from genjax_torch.ops import fused_model, fused_step as fs
+    from genjax_torch.ops._build import BUILD_DIR
+
+    def stamp(model):
+        return os.stat(os.path.join(
+            BUILD_DIR, f"libfused_step_{model.name}.so")).st_mtime_ns
+
+    t_phase = time.perf_counter()
+    n, t = GEN_SIZE
+    resamples = [0]
+    resample_tree = pf_mod.resample_tree
+
+    def counted_resample(*args, **kwargs):
+        resamples[0] += 1
+        return resample_tree(*args, **kwargs)
+
+    def one_run(label, run, key, model_name):
+        """One run of a fused filter: ``(log Z, wall s, launches)``."""
+        zero_counts()
+        resamples[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z = float(run(key))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {**counts(), "by_model": dict(fs.fused_step.launches_by_model),
+               "resamples": resamples[0]}
+        check(math.isfinite(z), f"phase 33 {label}: log Z {z}")
+        check(got["by_model"] == {model_name: t},
+              f"phase 33 {label}: fused launches {got['by_model']}, not "
+              f"{t} from {model_name}")
+        check(got["cdf_counts"] == got["resamples"] >= 1,
+              f"phase 33 {label}: {got['cdf_counts']} CDF launches for "
+              f"{got['resamples']} resamples")
+        check(got["log_matmul"] == got["expand_adaptive"] == 0,
+              f"phase 33 {label}: another kernel ran: {got}")
+        return z, wall, got
+
+    def line(label, z, wall, got, extra=""):
+        print(f"[33 {label}] {card}: {n} x {t}: log Z {z:.5f}; fused "
+              f"launches {got['by_model']}; CDF launches "
+              f"{got['cdf_counts']} ({got['resamples']} resamples); "
+              f"{n * t / wall:.4g} particle-steps/s (wall {wall * 1e3:.2f} "
+              f"ms){extra}", flush=True)
+
+    out = {}
+    torch_forms = generated_models(dev)
+    pf_mod.resample_tree = counted_resample
+    try:
+        # (a) stochastic volatility, fused (generated) vs the general
+        # driver on the same model, over the same keys.
+        run_f, work = E.build_sv(n, t, device=dev)
+        run_g, _ = E.build_sv(n, t, fused=False, device=dev)
+        run_f(random.key(99, device=dev))          # warm-up
+        t0 = time.perf_counter()
+        fused_model.cuda_model(*E.sv_model(), dev)
+        generate_ms = (time.perf_counter() - t0) * 1e3
+        z_f, z_g, rates = [], [], []
+        for i in range(GEN_SV_KEYS):
+            key = random.key(100 + i, device=dev)
+            z, wall, got = one_run("sv", run_f, key, gen["sv"].name)
+            line(f"a sv key {i}", z, wall, got)
+            z_f.append(z)
+            rates.append(work / wall)
+            zero_counts()
+            z_g.append(float(run_g(key)))
+            check(counts()["fused_step"] == 0,
+                  "phase 33 sv: the general driver launched the fused step")
+        def mean_var(v):
+            m = sum(v) / len(v)
+            return m, sum((z - m) ** 2 for z in v) / (len(v) - 1)
+
+        (m_f, v_f), (m_g, v_g) = mean_var(z_f), mean_var(z_g)
+        diff = abs(m_f - m_g)
+        se = math.sqrt((v_f + v_g) / GEN_SV_KEYS)
+        check(diff <= 4 * se, f"phase 33 sv: mean log Z fused {m_f} vs "
+              f"general {m_g} (4 se = {4 * se})")
+        print(f"[33 a sv] {card}: mean log Z over {GEN_SV_KEYS} keys fused "
+              f"(generated) {m_f:.5f} vs general driver {m_g:.5f}: |diff| "
+              f"{diff:.3g}, 4 se "
+              f"{4 * se:.3g}; particle-steps/s {sorted(rates)}; each run "
+              f"traces the model, {generate_ms:.2f} ms", flush=True)
+        out["sv"] = {"log_z_fused": z_f, "log_z_general": z_g, "se": se,
+                     "generate_ms": generate_ms,
+                     "particle_steps_per_s": sorted(rates)[len(rates) // 2],
+                     "launches": got}
+
+        # (b) the linear lambdas against Kalman; then other constants:
+        # the same source, so the same library, and no build.
+        a, q, r = GEN_LINEAR
+        ys = E.linear_observations(t, 0, a, q, r)
+        want = E.kalman_loglik(ys, a, q, r, p0=q)
+        run_b = E.build_linear_fused(n, ys, a, q, r, device=dev,
+                                     header=False)
+        run_b(random.key(99, device=dev))
+        z, wall, got = one_run("linear", run_b, random.key(314159, device=dev),
+                               gen["linear"].name)
+        check(abs(z - want) < GEN_LINEAR_BOUND,
+              f"phase 33 linear: log Z {z} vs Kalman {want}")
+        line("b linear", z, wall, got, f"; Kalman {want:.5f}, |err| "
+             f"{abs(z - want):.4g} (bound {GEN_LINEAR_BOUND})")
+        built = stamp(gen["linear"])
+        a2, q2, r2 = GEN_LINEAR_OTHER
+        t0 = time.perf_counter()
+        other = fused_model.cuda_model(*E.linear_model(a2, q2, r2), dev)
+        fs.build(other.name)
+        regen_s = time.perf_counter() - t0
+        check(other.name == gen["linear"].name
+              and other.params != gen["linear"].params,
+              "phase 33 linear: other constants changed the source")
+        ys2 = E.linear_observations(t, 1, a2, q2, r2)
+        want2 = E.kalman_loglik(ys2, a2, q2, r2, p0=q2)
+        run_b2 = E.build_linear_fused(n, ys2, a2, q2, r2, device=dev,
+                                      header=False)
+        run_b2(random.key(99, device=dev))
+        z2, wall2, got2 = one_run("linear other", run_b2,
+                                  random.key(314160, device=dev), other.name)
+        check(stamp(gen["linear"]) == built,
+              "phase 33 linear: other constants rebuilt the library")
+        check(abs(z2 - want2) < GEN_LINEAR_BOUND,
+              f"phase 33 linear other: log Z {z2} vs Kalman {want2}")
+        line(f"b linear a,q,r={GEN_LINEAR_OTHER}", z2, wall2, got2,
+             f"; Kalman {want2:.5f}, |err| {abs(z2 - want2):.4g}; the "
+             f"same library (unchanged on disk), generated and loaded in "
+             f"{regen_s:.3f} s, no nvcc")
+        out["linear"] = {"log_z": z, "kalman": want, "launches": got,
+                         "other": {"abc": GEN_LINEAR_OTHER, "log_z": z2,
+                                   "kalman": want2, "regen_s": regen_s}}
+
+        # (c) the tracking model's torch form, generated, beside
+        # tracking.cuh on the same key.
+        run_hand, _ = E.build_pf_fused(n, t, device=dev)
+        pf_gen = pf_mod.fused_particle_filter(
+            lambda k: random.normal(k, (n,)), *torch_forms["tracking"], n)
+        ys_c = E.tracking_observations(t, dev)
+
+        def run_gen(key):
+            return pf_gen(key, ys_c)[0].log_z
+
+        run_gen(random.key(99, device=dev))
+        key = random.key(0, device=dev)
+        z_h, wall_h, got_h = one_run("tracking.cuh", run_hand, key,
+                                     E.TRACKING_CUDA.name)
+        z_t, wall_t, got_t = one_run("tracking generated", run_gen, key,
+                                     gen["tracking"].name)
+        check(abs(z_t - z_h) < GEN_TRACKING_BOUND,
+              f"phase 33 tracking: generated {z_t} vs tracking.cuh {z_h}")
+        line("c tracking.cuh", z_h, wall_h, got_h)
+        line("c tracking generated", z_t, wall_t, got_t,
+             f"; |log Z - tracking.cuh's| {abs(z_t - z_h):.3g} (bound "
+             f"{GEN_TRACKING_BOUND})")
+        out["tracking"] = {"log_z": z_t, "log_z_header": z_h,
+                           "launches": got_t, "header_launches": got_h}
+
+        # (d) constants the callables read, changed between two runs of
+        # one filter: each run generates the model anew, so each is held
+        # to its own Kalman, through the library phase 2 built.
+        prop, ll, set_constants = live_linear(dev)
+        pf_live = pf_mod.fused_particle_filter(
+            lambda k: torch.zeros(n, device=k.device), prop, ll, n)
+        built = stamp(gen["live"])
+        out["live"] = {}
+        for i, abc in enumerate((GEN_LINEAR, GEN_LINEAR_OTHER)):
+            set_constants(*abc)
+            ys = E.linear_observations(t, 2 + i, *abc)
+            want = E.kalman_loglik(ys, *abc, p0=abc[1])
+            obs = torch.as_tensor(ys, device=dev)
+            z, wall, got = one_run(
+                f"live {abc}", lambda key: pf_live(key, obs)[0].log_z,
+                random.key(271828 + i, device=dev), gen["live"].name)
+            check(abs(z - want) < GEN_LINEAR_BOUND,
+                  f"phase 33 live a,q,r={abc}: log Z {z} vs Kalman {want}")
+            line(f"d live a,q,r={abc}", z, wall, got,
+                 f"; Kalman {want:.5f}, |err| {abs(z - want):.4g}")
+            out["live"][str(abc)] = {"log_z": z, "kalman": want}
+            out["live"]["launches"] = got
+        check(stamp(gen["live"]) == built,
+              "phase 33 live: new constants rebuilt the library")
+    finally:
+        pf_mod.resample_tree = resample_tree
+
+    # Each generated kernel a call at 2^20 beside tracking.cuh's: CUDA
+    # events (the best of 3 rounds of 200 calls, the variants in turns)
+    # and the device time of a profiled run.
+    seeds, xs, lw, obs = step_inputs
+    variants = {"tracking.cuh": (*torch_forms["tracking"], E.TRACKING_CUDA),
+                **{f"gen_{k}": (*torch_forms[k], gen[k]) for k in gen}}
+
+    def call(v):
+        prop, ll, model = variants[v]
+        return lambda: fs.fused_step(seeds, xs, lw, obs, prop, ll,
+                                     cuda_model=model)
+
+    order = list(variants)
+    ms = {v: math.inf for v in order}
+    for rnd in range(3):
+        for v in (order if rnd % 2 == 0 else order[::-1]):
+            ms[v] = min(ms[v], cuda_ms(call(v), 200))
+    timing = {}
+    for v in order:
+        prop, ll, _ = variants[v]
+        _, dev_ms, _, ops, _ = profiled(call(v), 50)
+        plain = cuda_ms(lambda: fs.fused_step_plain(seeds, xs, lw, obs,
+                                                    prop, ll), 20)
+        timing[v] = {"ms": ms[v], "device_ms": dev_ms, "plain_ms": plain,
+                     "device_ops_per_call": ops}
+    print(f"[33 timing] {card}: fused step a call at 2^20, f32 state, "
+          f"CUDA events (best of 3 x 200 calls, in turns) and profiled "
+          f"device time: " + "; ".join(
+              f"{v} {timing[v]['ms']:.5f} ms events, "
+              f"{timing[v]['device_ms']} ms device, plain "
+              f"{timing[v]['plain_ms']:.4f} ms" for v in order), flush=True)
+    out["timing"] = timing
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[33] {card}: phase 33 in {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     started: dict = {}
     try:
@@ -3921,7 +4351,8 @@ def _main(started: dict) -> int:
     from genjax_torch.lang.distributions.discrete_hmm import (
         DiscreteHMM, forward_filter, forward_filter_parallel)
     from genjax_torch.ops import (cdf_counts, expand_adaptive as ea,
-                                  fused_step as fs, logmatmul as lm)
+                                  fused_model, fused_step as fs,
+                                  logmatmul as lm)
     from genjax_torch.ops._build import BUILD_DIR
 
     check("jax" not in sys.modules, "the port imported jax")
@@ -3931,13 +4362,25 @@ def _main(started: dict) -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     # -- 2. build ---------------------------------------------------------
+    # The fused step's libraries: one per hand-written header and one per
+    # header generated from phase 33's torch forms.
     t0 = time.perf_counter()
+    gen = {k: fused_model.cuda_model(*fns, dev)
+           for k, fns in generated_models(dev).items()}
+    gen_s = time.perf_counter() - t0
+
+    def timed_build(model):
+        t_b = time.perf_counter()
+        fs.build(model)
+        return time.perf_counter() - t_b
+
     builds = [cdf_counts.build, lm.build, ea.build,
-              *(lambda m=m: fs.build(m.name)
-                for m in (E.TRACKING_CUDA, E.LINEAR_CUDA))]
+              *(lambda m=m: timed_build(m.name)
+                for m in (E.TRACKING_CUDA, E.LINEAR_CUDA, *gen.values()))]
     with ThreadPoolExecutor(len(builds)) as pool:
-        for job in [pool.submit(b) for b in builds]:
-            job.result()
+        jobs = [pool.submit(b) for b in builds]
+        build_s = [job.result() for job in jobs]
+    gen_nvcc_s = dict(zip(gen, build_s[5:]))
     nvcc_s = time.perf_counter() - t0
     probe = torch.zeros(4096, device=dev)
     cdf_counts.systematic_cumulative(random.key(1, device=dev), probe, 4096)
@@ -3946,9 +4389,11 @@ def _main(started: dict) -> int:
                   cuda_model=E.TRACKING_CUDA)
     torch.cuda.synchronize()
     print(f"[2 build] cdf_counts, logmatmul, expand_adaptive, fused_step x "
-          f"(tracking, linear): {len(builds)} nvcc sm_90a in parallel, "
-          f"{nvcc_s:.1f} s; launched in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+          f"(tracking, linear, generated {', '.join(gen)}): {len(builds)} "
+          f"nvcc sm_90a in parallel, {nvcc_s:.1f} s (the generated headers "
+          f"traced and written in {gen_s:.2f} s; nvcc a generated model, "
+          f"in the pool: {gen_nvcc_s}); launched in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 3. cdf kernel vs plain --------------------------------------------
     # The plain version's f32 cumsum drifts by ulps of a total that grows
@@ -4028,42 +4473,16 @@ def _main(started: dict) -> int:
     xs0 = random.normal(random.key(1, device=dev), (n,))
     lw0 = random.normal(random.key(2, device=dev), (n,)) * 0.3
     obs = torch.tensor(2.5, device=dev)
-    fused_err = 0.0
-    # xs/lw: the kernel's sqrt/log1p/cos are the card's libdevice, its
-    # divisions the fast ones and its exp the approximate instruction,
-    # not torch's, so an element may move by a few ulp, amplified by the
-    # model (x^2 / 20, then a square): xs to 1e-3 and lw to 1e-2 absolute,
-    # on values of order 10 and 100.
-    for dtype, tol, size in ((torch.float32, 1e-3, n),
-                             (torch.bfloat16, 1e-3, n),
-                             (torch.float32, 1e-3, 1_000_003)):
-        xs, lw_s = xs0[:size].to(dtype), lw0[:size]
-        out_k, again = (fs.fused_step(
-            seeds, xs, lw_s, obs, E.tracking_propagate, E.tracking_loglik,
-            cuda_model=E.TRACKING_CUDA, state_dtype=dtype) for _ in range(2))
-        out_p = fs.fused_step_plain(seeds, xs, lw_s, obs, E.tracking_propagate,
-                                    E.tracking_loglik, state_dtype=dtype)
-        torch.cuda.synchronize()
-        check(all(bool(torch.equal(a, b)) for a, b in zip(out_k, again)),
-              f"fused_step {dtype} n={size}: two calls differ")
-        check(out_k[0].dtype == dtype and out_k[1].dtype == torch.float32,
-              "fused_step output dtypes")
-        x_err = float((out_k[0].float() - out_p[0].float()).abs().max())
-        lw_err = float((out_k[1] - out_p[1]).abs().max())
-        # bf16 state: one rounding of x_new either side of a tie.
-        x_tol = tol if dtype == torch.float32 else 0.0625
-        check(x_err <= x_tol, f"fused_step {dtype} xs err {x_err}")
-        check(lw_err <= tol * 10, f"fused_step {dtype} lw err {lw_err}")
-        lse_err = abs(float(out_k[2] - out_p[2]))
-        ess_rel = abs(float(out_k[3] - out_p[3])) / float(out_p[3])
-        check(lse_err < 1e-4, f"fused_step {dtype} lse err {lse_err}")
-        check(ess_rel < 1e-4, f"fused_step {dtype} ess rel err {ess_rel}")
-        if dtype == torch.float32:
-            fused_err = max(fused_err, x_err, lw_err)
-        print(f"[4 fused_step {str(dtype)[6:]} n={size}] bits+uniforms "
-              f"bitwise at 2^20; |dx|={x_err:.3g} |dlw|={lw_err:.3g} "
-              f"|dlse|={lse_err:.3g} ess rel={ess_rel:.3g}; two calls equal "
-              f"bit for bit", flush=True)
+    step_inputs = (seeds, xs0, lw0, obs)
+    fused_err = fused_vs_plain("tracking.cuh", E.tracking_propagate,
+                               E.tracking_loglik, E.TRACKING_CUDA,
+                               step_inputs)
+    print("[4 fused_step] threefry words and uniforms bitwise core.random's "
+          "at 2^20", flush=True)
+    gen_fns = generated_models(dev)
+    gen_step_err = {k: fused_vs_plain(f"generated {k}", *gen_fns[k], gen[k],
+                                      step_inputs)
+                    for k in gen}
 
     # -- main path: launch counts from here ---------------------------------
     def counts():
@@ -4075,6 +4494,7 @@ def _main(started: dict) -> int:
     def zero_counts():
         cdf_counts.systematic_cumulative.launches = 0
         fs.fused_step.launches = 0
+        fs.fused_step.launches_by_model.clear()
         lm.log_matmul.launches = 0
         ea.expand_adaptive.launches = 0
 
@@ -4276,6 +4696,7 @@ def _main(started: dict) -> int:
     want = lm.log_matmul_plain(xi, torch.zeros(4, 4, device=dev))
     check(bool(torch.equal(torch.isnan(got), torch.isnan(want))
                & torch.isnan(got[1]).all()), "log_matmul: an all -inf row")
+    lm_grad = log_matmul_grad_check(dev, card)
     print(f"[8 log_matmul] B=8 at S=128/512/1024, ragged S=100/200, "
           f"K=101, scale 30, B=70000, unbatched, strided, the path's (511, "
           f"1024, 1024): max |kernel - plain| = {lm_err:.3g} (tol 1e-5 + "
@@ -4724,6 +5145,10 @@ def _main(started: dict) -> int:
 
     # -- 32. the documented programs on the card ----------------------------
     ex32 = examples_phase(card, started)
+
+    # -- 33. models with no hand-written header, fused at config 4's width -
+    gen33 = generated_phase(dev, card, zero_counts, counts, gen,
+                            step_inputs)
     ex32_launches = {k: sum(o["launches"][k]
                             for o in ex32["programs"].values())
                      for k in ("fused_step", "log_matmul", "expand_adaptive")}
@@ -4790,6 +5215,20 @@ def _main(started: dict) -> int:
          "device_ops_per_call": ops_per_call["fused_step"],
          "by_size": {n_4: {"device_ms": fused_dev_4}},
          "plain_device_ms": busy["fused_step_plain"]},
+        *({"name": f"fused_step[generated {k}]", "route": "cuda",
+           "source": "genjax_torch/csrc/fused_step.cu",
+           "models": [f"generated by genjax_torch/ops/fused_model.py from "
+                      f"chip_smoke.generated_models(dev)['{k}']"],
+           "replaces": "genjax_tpu/ops/fused_step.py:215",
+           "launches": gen33[k]["launches"]["by_model"][gen[k].name],
+           "max_abs_err": gen_step_err[k],
+           "ms": gen33["timing"][f"gen_{k}"]["ms"],
+           "plain_ms": gen33["timing"][f"gen_{k}"]["plain_ms"],
+           "bound_ms": fused_bound, "bound_by": fused_by,
+           "library_ms": None,
+           "device_ms": gen33["timing"][f"gen_{k}"]["device_ms"],
+           "nvcc_s": gen_nvcc_s[k], "params": list(gen[k].params)}
+          for k in gen),
         {"name": "log_matmul", "route": "cuda",
          "source": "genjax_torch/csrc/logmatmul.cu",
          "replaces": "genjax_tpu/ops/logmatmul.py:61",
@@ -4804,6 +5243,7 @@ def _main(started: dict) -> int:
          "tc_bound_ms": lm_main["tc_bound_ms"],
          "f32_bound_ms": lm_main["f32_bound_ms"],
          "library_ms": None, "product_only_bmm_ms": lm_main["bmm_ms"],
+         "gradient": lm_grad,
          "device_ms": lm_main["device_ms"],
          "shape": [lm_main["batch"], s_hmm, s_hmm],
          "by_size": lm_rows},
@@ -4835,7 +5275,7 @@ def _main(started: dict) -> int:
         "parallel_tempering": pt_map["pt"],
         "map_laplace": pt_map["map_laplace"], "distributed": dist28,
         **dist29, "batched_slice": slice30, "sharded_samplers": shard31,
-        "documented_programs": ex32,
+        "documented_programs": ex32, "generated_models": gen33,
         "contended": {"phases": list(range(14, 32)), "by": (
             f"phase 32's pool of {EXAMPLE_WORKERS} worker processes on the "
             "same card and host"), "what": "walls, rates, idle shares and "

@@ -17,10 +17,12 @@
 // scratch. Every sum is taken in an order that does not depend on timing,
 // so the results repeat bit for bit, and there are no float atomics.
 //
-// The model comes in at compile time: nvcc pre-includes one header of
-// csrc/models/ (-include), which defines fused_model::propagate, loglik
-// and kParams, the number of float constants it reads; the constants come
-// in by value with the launch. One library is built per model.
+// The model comes in at compile time: nvcc pre-includes one header
+// (-include), which defines fused_model::propagate, loglik and kParams,
+// the number of float constants it reads; the constants come in by value
+// with the launch. The header is a hand-written one of csrc/models/ or
+// one that genjax_torch/ops/fused_model.py generated from the model's
+// torch form. One library is built per header.
 //
 // The key's two words and the observation are read from device memory, so
 // a step needs no host sync. Counters are the flat index in uint32 (any
@@ -55,7 +57,8 @@ constexpr int kItems = 4;
 constexpr int kTile = kThreads * kItems;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxParams = 8;
+// The model constants a launch carries (fused_model.py's MAX_PARAMS).
+constexpr int kMaxParams = 32;
 
 static_assert(fused_model::kParams <= kMaxParams, "too many model constants");
 

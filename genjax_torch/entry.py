@@ -8,8 +8,11 @@
   general batched driver and the fused-kernel driver (counterpart of
   ``bench.build_pf`` / ``bench.build_pf_fused``);
 - :func:`build_linear_fused`: the linear-Gaussian model of the fused
-  filter's tests, whose exact log Z is the Kalman recurrence
-  :func:`kalman_loglik`;
+  filter's tests (:func:`linear_model`, any constants), whose exact
+  log Z is the Kalman recurrence :func:`kalman_loglik`;
+- :func:`build_sv`: the stochastic-volatility model of Kim, Shephard and
+  Chib (1998) (:func:`sv_model`) through the fused-kernel driver or the
+  general one;
 - :func:`build_hmm_smc`: bench config 3, the discrete-HMM bootstrap
   filter scored against the exact forward filter (counterpart of
   ``benchmarks/run_all.py::config3_hmm_smc``);
@@ -77,10 +80,13 @@
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"`` (or another device); without a card it raises rather
-than run on the CPU. The fused drivers hand the kernel each model's CUDA
-form (:data:`TRACKING_CUDA`, :data:`LINEAR_CUDA`): its header under
+than run on the CPU. :func:`build_pf_fused` and :func:`build_linear_fused`
+hand the kernel a hand-written CUDA form of their model
+(:data:`TRACKING_CUDA`, :func:`linear_cuda`): its header under
 ``genjax_torch/csrc/models/`` and the constants below, which the torch
-form reads too.
+form reads too. :func:`build_sv` and ``build_linear_fused(...,
+header=False)`` hand it none: the fused filter generates the CUDA form
+from the torch callables (``genjax_torch/ops/fused_model.py``).
 """
 
 from __future__ import annotations
@@ -147,6 +153,14 @@ __all__ = [
     "LINEAR_CUDA",
     "kalman_loglik",
     "build_linear_fused",
+    "linear_model",
+    "linear_cuda",
+    "SV_PHI",
+    "SV_SIGMA",
+    "SV_MU",
+    "sv_model",
+    "sv_observations",
+    "build_sv",
     "build_hmm_smc",
     "build_hmm_parallel",
     "tempered_model",
@@ -325,28 +339,46 @@ def build_pf_fused(n_particles: int, n_steps: int,
 
 LINEAR_A, LINEAR_Q, LINEAR_R = 0.9, 1.0, 0.3
 LINEAR_HALF_LOG_2PI_R = 0.5 * math.log(2 * math.pi * LINEAR_R)
+
+
+def linear_model(a: float, q: float, r: float):
+    """The linear-Gaussian model's torch form with the constants ``a``,
+    ``q``, ``r`` (the JAX package's test lambdas,
+    ``tests/ops/test_fused_step.py:111-140``): ``(propagate, loglik)``."""
+    sd, half_log = math.sqrt(q), 0.5 * math.log(2 * math.pi * r)
+
+    def propagate(x, e):
+        return a * x + sd * e
+
+    def loglik(x, y):
+        return -0.5 * (y - x) ** 2 / r - half_log
+
+    return propagate, loglik
+
+
+def linear_cuda(a: float, q: float, r: float) -> CudaModel:
+    """The same model's hand-written CUDA form (``csrc/models/linear.cuh``)
+    with the constants ``a``, ``q``, ``r``."""
+    return CudaModel("linear", (a, math.sqrt(q), r,
+                                0.5 * math.log(2 * math.pi * r)))
+
+
+linear_propagate, linear_loglik = linear_model(LINEAR_A, LINEAR_Q, LINEAR_R)
 #: The linear-Gaussian model for the fused-step kernel
 #: (``csrc/models/linear.cuh``).
-LINEAR_CUDA = CudaModel("linear", (LINEAR_A, math.sqrt(LINEAR_Q), LINEAR_R,
-                                   LINEAR_HALF_LOG_2PI_R))
+LINEAR_CUDA = linear_cuda(LINEAR_A, LINEAR_Q, LINEAR_R)
 
 
-def linear_propagate(x, e):
-    return LINEAR_A * x + math.sqrt(LINEAR_Q) * e
-
-
-def linear_loglik(x, y):
-    return -0.5 * (y - x) ** 2 / LINEAR_R - LINEAR_HALF_LOG_2PI_R
-
-
-def linear_observations(n_steps: int = 15, seed: int = 0) -> np.ndarray:
-    """Observations simulated from the linear-Gaussian model with numpy."""
+def linear_observations(n_steps: int = 15, seed: int = 0, a=LINEAR_A,
+                        q=LINEAR_Q, r=LINEAR_R) -> np.ndarray:
+    """Observations simulated from the linear-Gaussian model with numpy,
+    from ``x_1 ~ N(0, q)`` (one step from a start at zero)."""
     rng = np.random.default_rng(seed)
-    x = rng.normal(0, 1)
+    x = rng.normal(0, np.sqrt(q))
     ys = []
     for _ in range(n_steps):
-        ys.append(x + rng.normal(0, np.sqrt(LINEAR_R)))
-        x = LINEAR_A * x + rng.normal(0, np.sqrt(LINEAR_Q))
+        ys.append(x + rng.normal(0, np.sqrt(r)))
+        x = a * x + rng.normal(0, np.sqrt(q))
     return np.asarray(ys, np.float32)
 
 
@@ -363,14 +395,20 @@ def kalman_loglik(ys, a=LINEAR_A, q=LINEAR_Q, r=LINEAR_R, mu0=0.0, p0=1.0):
     return float(ll)
 
 
-def build_linear_fused(n_particles: int, ys, device=None):
-    """The linear-Gaussian model through the fused filter, initialized at
-    zero (so that ``x_0 ~ N(0, 1)`` after one step, the Kalman prior).
-    Returns ``run(key) -> log Z``."""
+def build_linear_fused(n_particles: int, ys, a: float = LINEAR_A,
+                       q: float = LINEAR_Q, r: float = LINEAR_R, device=None,
+                       header: bool = True):
+    """:func:`linear_model` with ``a, q, r`` through the fused filter,
+    started at zero, so that ``x_1 ~ N(0, q)``: its exact log Z is
+    ``kalman_loglik(ys, a, q, r, p0=q)``. On the card the kernel takes
+    ``linear.cuh`` (``header``), or else the CUDA form generated from the
+    lambdas. Returns ``run(key) -> log Z``."""
     device = _device(device)
+    propagate, loglik = linear_model(a, q, r)
     pf = fused_particle_filter(
         lambda k: torch.zeros(n_particles, device=k.device),
-        linear_propagate, linear_loglik, n_particles, cuda_model=LINEAR_CUDA,
+        propagate, loglik, n_particles,
+        cuda_model=linear_cuda(a, q, r) if header else None,
     )
     obs = torch.as_tensor(np.asarray(ys, np.float32), device=device)
 
@@ -379,6 +417,79 @@ def build_linear_fused(n_particles: int, ys, device=None):
         return final.log_z
 
     return run
+
+
+#: The stochastic-volatility model of Kim, Shephard and Chib (1998),
+#: "Stochastic volatility: likelihood inference and comparison with ARCH
+#: models", with parameters near their fit: log-volatility
+#: ``x' = mu + phi (x - mu) + sigma eps``, returns ``y ~ N(0, e^x)``.
+SV_PHI, SV_SIGMA, SV_MU = 0.98, 0.15, -0.9
+LOG_2PI = math.log(2 * math.pi)
+
+
+def sv_model(phi: float = SV_PHI, sigma: float = SV_SIGMA,
+             mu: float = SV_MU):
+    """The stochastic-volatility model's torch form: ``(propagate,
+    loglik)``, ``loglik = -(log 2 pi + x + y^2 e^-x) / 2``. It has no
+    hand-written CUDA header."""
+
+    def propagate(x, e):
+        return mu + phi * (x - mu) + sigma * e
+
+    def loglik(x, y):
+        return -0.5 * (LOG_2PI + x + y * y * torch.exp(-x))
+
+    return propagate, loglik
+
+
+def _sv_stationary_sd(phi: float, sigma: float) -> float:
+    return sigma / math.sqrt(1.0 - phi * phi)
+
+
+def sv_observations(n_steps: int = 32, seed: int = 0, phi=SV_PHI,
+                    sigma=SV_SIGMA, mu=SV_MU) -> np.ndarray:
+    """Returns simulated from the model with numpy, its log-volatility
+    started from the stationary law."""
+    rng = np.random.default_rng(seed)
+    x = mu + _sv_stationary_sd(phi, sigma) * rng.normal()
+    ys = []
+    for _ in range(n_steps):
+        x = mu + phi * (x - mu) + sigma * rng.normal()
+        ys.append(np.exp(0.5 * x) * rng.normal())
+    return np.asarray(ys, np.float32)
+
+
+def build_sv(n_particles: int, n_steps: int, fused: bool = True,
+             device=None, seed: int = 0):
+    """The stochastic-volatility model on :func:`sv_observations`, the
+    ensemble started from the stationary law, through the fused filter
+    (on the card, the CUDA form generated from :func:`sv_model`) or the
+    general batched driver (``fused=False``). Returns ``(run, work)`` as
+    :func:`build_pf`."""
+    device = _device(device)
+    propagate, loglik = sv_model()
+    sd0 = _sv_stationary_sd(SV_PHI, SV_SIGMA)
+
+    def init_xs(key):
+        return SV_MU + sd0 * random.normal(key, (n_particles,))
+
+    if fused:
+        pf = fused_particle_filter(init_xs, propagate, loglik, n_particles)
+    else:
+        def step(key, xs, y):
+            xs_new = propagate(xs, random.normal(key, (n_particles,)))
+            return xs_new, loglik(xs_new, y)
+
+        pf = particle_filter(
+            lambda k: (init_xs(k), torch.zeros(n_particles, device=k.device)),
+            step, n_particles, batched=True)
+    ys = torch.as_tensor(sv_observations(n_steps, seed), device=device)
+
+    def run(key):
+        final, _ = pf(key, ys)
+        return final.log_z
+
+    return run, n_particles * n_steps
 
 
 def _hmm_problem(n_states: int, n_steps: int, device: torch.device):

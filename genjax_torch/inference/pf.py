@@ -24,6 +24,7 @@ from genjax_torch.core import random
 from genjax_torch.core.pytree import tree_leaves, tree_map
 from genjax_torch.gfi.gfn import GenerativeFunction
 from genjax_torch.inference.smc import _step_keys, resample_tree
+from genjax_torch.ops import fused_model
 from genjax_torch.ops.fused_step import CudaModel, fused_step
 
 __all__ = [
@@ -159,8 +160,13 @@ def fused_particle_filter(
     - ``propagate(x, eps)`` / ``loglik(x_new, obs_t)``: the model's torch
       form, elementwise;
     - ``cuda_model``: the same model's CUDA form (the header the kernel
-      compiles in and its constants), required when the ensemble lies
-      off the CPU.
+      compiles in and its constants), for an ensemble on the card. None
+      generates it from ``propagate`` / ``loglik``
+      (:mod:`~genjax_torch.ops.fused_model`) at the start of each run on
+      the card, so constants the callables read are those of that run
+      (a trace of milliseconds; the library is built once a structure);
+      a model it cannot take raises there. A generated or hand-written
+      model (``csrc/models/``) passed here is fixed for every run.
 
     Semantics match :func:`particle_filter`; the normal stream is the
     kernel's threefry-on-counter + Box–Muller, so the two agree
@@ -173,10 +179,11 @@ def fused_particle_filter(
         k_init, k_res, k_prop = _filter_keys(key, n_steps)
         xs = init(k_init).to(state_dtype)
         dev = xs.device
-        if dev.type != "cpu" and cuda_model is None:
-            raise ValueError(f"fused_particle_filter: an ensemble on {dev} "
-                             f"steps through the kernel, which needs the "
-                             f"model's CUDA form (cuda_model=)")
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"fused_particle_filter: no kernel for {dev}")
+        model = cuda_model
+        if dev.type == "cuda" and model is None:
+            model = fused_model.cuda_model(propagate, loglik, dev)
         obs = torch.as_tensor(observations, dtype=torch.float32, device=dev)
         k_res, k_prop = k_res.to(dev), k_prop.to(dev)
         lw = torch.zeros(n_particles, device=dev)
@@ -193,7 +200,7 @@ def fused_particle_filter(
                 lw = torch.zeros_like(lw)
             xs, lw, lse, ess = fused_step(
                 k_prop[t], xs, lw, obs[t], propagate, loglik,
-                cuda_model=cuda_model, state_dtype=state_dtype,
+                cuda_model=model, state_dtype=state_dtype,
             )
             log_zs.append(log_z + lse - log_n)
         return FilterState(xs, lw, log_z + lse - log_n), torch.stack(log_zs)

@@ -38,9 +38,12 @@ def _nvcc() -> str:
 def load_cuda_library(name: str, *sources: str,
                       include: str | None = None) -> ctypes.CDLL:
     """Compile ``csrc/<sources>`` into ``_build/lib<name>.so`` (again only
-    when a source, or the header ``csrc/<include>`` that nvcc includes
-    before each of them, is newer than the library) and load it. The
-    caller keeps the handle."""
+    when a source, or the header ``include`` that nvcc includes before
+    each of them, is newer than the library) and load it. ``include`` is
+    a path under ``csrc/`` or an absolute one, which ``os.path.join``
+    keeps (a header generated into ``_build/``). The build goes to a
+    temporary file that replaces the library, so processes may build it
+    at once. The caller keeps the handle."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     srcs = [os.path.join(CSRC_DIR, s) for s in sources]
     pre = [] if include is None else [os.path.join(CSRC_DIR, include)]

@@ -7,11 +7,13 @@ Replaces ``genjax_tpu/ops/fused_step.py::make_fused_step`` (body
 ``_fused_kernel``, with ``threefry2x32`` and ``normal_from_counter``).
 The TPU kernel traces the user's ``propagate`` / ``loglik`` Python
 callables into its body; the CUDA kernel compiles the model in from a
-header of ``__device__`` functions (``csrc/models/<name>.cuh``), one
-library a model, so the model comes in two forms: torch callables for
-the plain version and a :class:`CudaModel` (the header's name and the
-constants it reads, taken from the same Python values as the torch form)
-for the kernel.
+header of ``__device__`` functions, one library a header. The header is
+generated from the torch callables by :mod:`genjax_torch.ops.fused_model`
+(``cuda_model=None``, the default: any elementwise model, traced at
+each call with the constants it reads then), or is a
+hand-written one of ``csrc/models/<name>.cuh`` named by a
+:class:`CudaModel` (the header's name and the constants it reads, taken
+from the same Python values as the torch form).
 
 What bounds it on the card: bytes and the integer pipe, about equally
 (see the source's header). Each block writes one partial (max, sumexp)
@@ -45,8 +47,10 @@ __all__ = [
 
 
 class CudaModel(NamedTuple):
-    """A scalar-state model's CUDA form: ``csrc/models/<name>.cuh``
-    defines its ``propagate`` and ``loglik``, which read ``params`` (float
+    """A scalar-state model's CUDA form: the header ``csrc/models/<name>
+    .cuh``, or for a ``gen_<sha256>`` name the one that
+    :func:`~genjax_torch.ops.fused_model.cuda_model` generated, defines
+    its ``propagate`` and ``loglik``, which read ``params`` (float
     constants, in the order the header lists)."""
 
     name: str
@@ -91,12 +95,16 @@ def fused_step_plain(seeds, xs, lw, obs, propagate, loglik,
 @functools.cache
 def build(model: str) -> ctypes.CDLL:
     """Compile (at first use) and load the kernel's library for the model
-    ``csrc/models/<model>.cuh``, and set its functions' signatures, once
-    per process and model."""
+    ``csrc/models/<model>.cuh``, or the generated header of a ``gen_``
+    model, and set its functions' signatures, once per process and
+    model."""
     from genjax_torch.ops._build import load_cuda_library
+    from genjax_torch.ops.fused_model import header_path
 
+    header = (header_path(model) if model.startswith("gen_")
+              else f"models/{model}.cuh")
     lib = load_cuda_library(f"fused_step_{model}", "fused_step.cu",
-                            include=f"models/{model}.cuh")
+                            include=header)
     p = ctypes.c_void_p
     lib.fused_step_launch.argtypes = [
         p, p, p, p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_int,
@@ -116,7 +124,7 @@ def _scratch_floats(model: str, n: int) -> int:
     return build(model).fused_step_partial_floats(n)
 
 
-@functools.cache
+@functools.lru_cache(maxsize=64)
 def param_array(params: tuple[float, ...]) -> ctypes.Array:
     """The model's constants as the float array the launch copies."""
     return (ctypes.c_float * len(params))(*params)
@@ -137,8 +145,13 @@ def fused_step(seeds, xs, lw, obs, propagate, loglik, *,
     (``state_dtype``), ``lw`` f32 log-weights, ``obs`` a scalar
     observation. A CPU tensor takes :func:`fused_step_plain` with the
     torch model; a CUDA tensor launches the kernel with ``cuda_model``,
-    or raises. On the card the inputs must already conform (contiguous
-    ``xs`` / ``lw`` on one device, the key's int64 words there, ``obs`` a
+    or, where that is None, with the CUDA form generated from
+    ``propagate`` / ``loglik`` as they are at this call
+    (:mod:`~genjax_torch.ops.fused_model`, which raises on an op it
+    cannot take; the trace costs milliseconds, so a loop generates it
+    once and passes it, as :func:`~genjax_torch.inference.pf.
+    fused_particle_filter` does a run), or raises. On the card the inputs must already conform
+    (contiguous ``xs`` / ``lw`` on one device, the key's int64 words there, ``obs`` a
     one-element f32 tensor there or a number): nothing is converted but a
     number. The outputs are new tensors; ``lse`` and ``ess`` are 0-d
     views of the same allocation as ``lw_new``."""
@@ -147,9 +160,6 @@ def fused_step(seeds, xs, lw, obs, propagate, loglik, *,
                                 state_dtype)
     if xs.device.type != "cuda":
         raise ValueError(f"fused_step: no kernel for {xs.device}")
-    if cuda_model is None:
-        raise ValueError("fused_step on a CUDA tensor needs the model's CUDA "
-                         "form (cuda_model=)")
     dev = xs.device
     if (state_dtype not in (torch.float32, torch.bfloat16)
             or xs.dtype != state_dtype or xs.ndim != 1
@@ -173,6 +183,10 @@ def fused_step(seeds, xs, lw, obs, propagate, loglik, *,
     elif obs.dtype != torch.float32 or obs.numel() != 1 or obs.device != dev:
         raise ValueError("fused_step: obs must be one float32 on the "
                          "ensemble's device")
+    if cuda_model is None:
+        from genjax_torch.ops.fused_model import cuda_model as generate
+
+        cuda_model = generate(propagate, loglik, dev)
     lib = build(cuda_model.name)
     # One allocation for lw_new, the partials and (lse, ess), and x_new
     # too where it is f32; each part starts on 16 bytes.
@@ -201,8 +215,12 @@ def fused_step(seeds, xs, lw, obs, propagate, loglik, *,
         raise RuntimeError(f"fused_step kernel launch failed: CUDA error "
                            f"{err}")
     fused_step.launches += 1
+    by_model = fused_step.launches_by_model
+    by_model[cuda_model.name] = by_model.get(cuda_model.name, 0) + 1
     return xs_new, lw_new, buf[stats_at], buf[stats_at + 1]
 
 
-#: Kernel launches so far (the CPU path does not count).
+#: Kernel launches so far (the CPU path does not count), in all and by the
+#: model's header name.
 fused_step.launches = 0
+fused_step.launches_by_model = {}

@@ -18,6 +18,7 @@ card's memory and device-time readings stubbed, CDF "launches" counted at
 the resampling call the kernel serves, and phases 21, 23 and 27's
 unsharded runs as its references."""
 
+import functools
 import json
 import math
 import os
@@ -353,3 +354,105 @@ def test_phase_32_rehearsal(capsys):
     assert out["programs"]["ex01_beta_bernoulli_sir"]["sizes"] \
         == "documented"
     json.dumps(chip_smoke.finite_or_none(out))
+
+
+def test_phase_33_rehearsal(monkeypatch, capsys, tmp_path):
+    """Phase 33 on the CPU at 4096 particles x 32 steps: the fused filter
+    on each generated model with its launches counted at the step the
+    kernel serves (by the name of the CUDA form it would launch), CDF
+    "launches" at the resampling call, the library check against a
+    stand-in file, the timing stubbed. The accuracy bounds hold at 2^20
+    on the card, not at 4096."""
+    import genjax_torch.inference.smc as smc_mod
+    from genjax_torch.inference import pf as pf_mod
+    from genjax_torch.ops import _build, fused_model
+    from genjax_torch.ops import fused_step as fs
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, reps: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "profiled",
+                        lambda fn, reps: (fn(), (2.0, 1.0, {}, 1.0, 0.1))[1])
+    monkeypatch.setattr(chip_smoke, "GEN_SIZE", (4096, 32))
+    monkeypatch.setattr(chip_smoke, "GEN_LINEAR_BOUND", math.inf)
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(fused_model, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(fs, "build", lambda name: None)
+    launches = {"cdf_counts": 0, "fused_step": 0}
+    by_model = {}
+    cdf, step = smc_mod.systematic_cumulative, pf_mod.fused_step
+
+    def counted_cdf(*args, **kwargs):
+        launches["cdf_counts"] += 1
+        return cdf(*args, **kwargs)
+
+    @functools.lru_cache
+    def generated(propagate, loglik):
+        return fused_model.cuda_model(propagate, loglik)
+
+    def counted_step(seeds, xs, lw, obs, propagate, loglik, *,
+                     cuda_model=None, state_dtype=torch.float32):
+        model = cuda_model or generated(propagate, loglik)
+        launches["fused_step"] += 1
+        by_model[model.name] = by_model.get(model.name, 0) + 1
+        return step(seeds, xs, lw, obs, propagate, loglik,
+                    cuda_model=cuda_model, state_dtype=state_dtype)
+
+    monkeypatch.setattr(smc_mod, "systematic_cumulative", counted_cdf)
+    monkeypatch.setattr(pf_mod, "fused_step", counted_step)
+    monkeypatch.setattr(fs.fused_step, "launches_by_model", by_model)
+
+    def counts():
+        return {**launches, "log_matmul": 0, "expand_adaptive": 0}
+
+    def zero_counts():
+        launches.update(cdf_counts=0, fused_step=0)
+        by_model.clear()
+
+    gen = {k: fused_model.cuda_model(*fns)
+           for k, fns in chip_smoke.generated_models("cpu").items()}
+    for k in ("linear", "live"):
+        (tmp_path / f"libfused_step_{gen[k].name}.so").write_bytes(b"")
+    from genjax_torch.core import random
+
+    dev = torch.device("cpu")
+    inputs = (random.key_data(random.key(3)), random.normal(
+        random.key(1), (4096,)), 0.3 * random.normal(random.key(2), (4096,)),
+        torch.tensor(2.5))
+    out = chip_smoke.generated_phase(dev, "cpu", zero_counts, counts, gen,
+                                     inputs)
+    text = capsys.readouterr().out
+    for part in ("a sv key 7", "a sv]", "b linear", "c tracking.cuh",
+                 "c tracking generated", "d live a,q,r=(0.7",
+                 "d live a,q,r=(0.6", "timing"):
+        assert f"[33 {part}" in text
+    assert out["sv"]["launches"]["by_model"] == {gen["sv"].name: 32}
+    assert out["tracking"]["header_launches"]["by_model"] == {"tracking": 32}
+    assert math.isfinite(out["linear"]["other"]["log_z"])
+    assert set(out["timing"]) == {"tracking.cuh", "gen_sv", "gen_linear",
+                                  "gen_tracking", "gen_live"}
+    assert out["live"]["launches"]["by_model"] == {gen["live"].name: 32}
+    json.dumps(chip_smoke.finite_or_none(out))
+
+
+def test_log_matmul_grad_check_rehearsal(monkeypatch, capsys):
+    """Phase 8's gradient check on the CPU: the card's route (the
+    Function around the launch, its forward the plain version here) in
+    the parallel filter, counted at the filter's product."""
+    import importlib
+
+    from genjax_torch.ops import logmatmul as lm
+
+    dhmm = importlib.import_module(
+        "genjax_torch.lang.distributions.discrete_hmm")
+
+    def kernel_route(x, y):
+        lm.log_matmul.launches += 1
+        return lm._LogMatmul.apply(x, y)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(dhmm, "log_matmul", kernel_route)
+    out = chip_smoke.log_matmul_grad_check(torch.device("cpu"), "cpu")
+    assert dhmm.log_matmul is kernel_route
+    assert "[8 log_matmul gradient]" in capsys.readouterr().out
+    assert out["filter_grad_err"] <= 1e-4
