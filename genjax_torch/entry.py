@@ -86,7 +86,9 @@ hand the kernel a hand-written CUDA form of their model
 ``genjax_torch/csrc/models/`` and the constants below, which the torch
 form reads too. :func:`build_sv` and ``build_linear_fused(...,
 header=False)`` hand it none: the fused filter generates the CUDA form
-from the torch callables (``genjax_torch/ops/fused_model.py``).
+from the torch callables (``genjax_torch/ops/fused_model.py``), as do
+:func:`build_dynamic_logit` and :func:`build_quantised`, whose
+likelihoods need bool values, rounding and ``logaddexp`` there.
 """
 
 from __future__ import annotations
@@ -161,6 +163,8 @@ __all__ = [
     "sv_model",
     "sv_observations",
     "build_sv",
+    "build_dynamic_logit",
+    "build_quantised",
     "build_hmm_smc",
     "build_hmm_parallel",
     "tempered_model",
@@ -466,12 +470,22 @@ def build_sv(n_particles: int, n_steps: int, fused: bool = True,
     (on the card, the CUDA form generated from :func:`sv_model`) or the
     general batched driver (``fused=False``). Returns ``(run, work)`` as
     :func:`build_pf`."""
+    return _build_scalar_filter(
+        sv_model(), SV_MU, _sv_stationary_sd(SV_PHI, SV_SIGMA),
+        sv_observations(n_steps, seed), n_particles, fused, device)
+
+
+def _build_scalar_filter(model, loc: float, sd: float, ys, n_particles: int,
+                         fused: bool, device):
+    """A scalar-state model ``(propagate, loglik)`` on the returns ``ys``,
+    the ensemble started from N(loc, sd²), through the fused filter (on
+    the card, the CUDA form generated from the torch form) or the general
+    batched driver: ``(run, work)`` as :func:`build_pf`."""
     device = _device(device)
-    propagate, loglik = sv_model()
-    sd0 = _sv_stationary_sd(SV_PHI, SV_SIGMA)
+    propagate, loglik = model
 
     def init_xs(key):
-        return SV_MU + sd0 * random.normal(key, (n_particles,))
+        return loc + sd * random.normal(key, (n_particles,))
 
     if fused:
         pf = fused_particle_filter(init_xs, propagate, loglik, n_particles)
@@ -483,13 +497,97 @@ def build_sv(n_particles: int, n_steps: int, fused: bool = True,
         pf = particle_filter(
             lambda k: (init_xs(k), torch.zeros(n_particles, device=k.device)),
             step, n_particles, batched=True)
-    ys = torch.as_tensor(sv_observations(n_steps, seed), device=device)
+    ys = torch.as_tensor(ys, device=device)
 
     def run(key):
         final, _ = pf(key, ys)
         return final.log_z
 
-    return run, n_particles * n_steps
+    return run, n_particles * len(ys)
+
+
+#: A latent AR(1) ``x' = AR_PHI x + AR_SIGMA eps``, started from its
+#: stationary law, under two likelihoods whose generated CUDA forms need
+#: more than f32 arithmetic: binary observations of a dynamic logit model
+#: (bool values and ``zeros_like``, :func:`dynamic_logit_model`) and a
+#: sensor that reads the state on a grid of ``QUANT_STEP`` with logistic
+#: noise of scale ``QUANT_SCALE`` (``round`` and ``logaddexp``,
+#: :func:`quantised_model`).
+AR_PHI, AR_SIGMA = 0.95, 0.3
+QUANT_STEP, QUANT_SCALE = 0.5, 0.3
+
+
+def _ar_propagate(x, e):
+    return AR_PHI * x + AR_SIGMA * e
+
+
+def _ar_path(n_steps: int, rng) -> np.ndarray:
+    x = _sv_stationary_sd(AR_PHI, AR_SIGMA) * rng.normal()
+    xs = []
+    for _ in range(n_steps):
+        x = AR_PHI * x + AR_SIGMA * rng.normal()
+        xs.append(x)
+    return np.asarray(xs)
+
+
+def dynamic_logit_model():
+    """The dynamic logit model's torch form: ``(propagate, loglik)``, the
+    observation a 0 / 1 float read as ``y > 0.5``, ``loglik =
+    bernoulli.logpdf(y > 0.5, x)`` (``x`` the logit)."""
+
+    def loglik(x, y):
+        return g.bernoulli.logpdf(y > 0.5, x)
+
+    return _ar_propagate, loglik
+
+
+def dynamic_logit_observations(n_steps: int = 32) -> np.ndarray:
+    """0 / 1 observations simulated from :func:`dynamic_logit_model` with
+    numpy."""
+    rng = np.random.default_rng(0)
+    x = _ar_path(n_steps, rng)
+    return (rng.uniform(size=n_steps) < 1 / (1 + np.exp(-x))).astype(
+        np.float32)
+
+
+def quantised_model():
+    """The quantised-sensor model's torch form: ``(propagate, loglik)``,
+    ``loglik = logistic.logpdf(y, QUANT_STEP round(x / QUANT_STEP),
+    QUANT_SCALE)``."""
+
+    def loglik(x, y):
+        return g.logistic.logpdf(y, QUANT_STEP * torch.round(x / QUANT_STEP),
+                                 QUANT_SCALE)
+
+    return _ar_propagate, loglik
+
+
+def quantised_observations(n_steps: int = 32, seed: int = 0) -> np.ndarray:
+    """Readings simulated from :func:`quantised_model` with numpy (whose
+    ``round`` is half to even, as torch's)."""
+    rng = np.random.default_rng(seed)
+    x = _ar_path(n_steps, rng)
+    grid = QUANT_STEP * np.round(x / QUANT_STEP)
+    return (grid + rng.logistic(0.0, QUANT_SCALE, n_steps)).astype(
+        np.float32)
+
+
+def build_dynamic_logit(n_particles: int, n_steps: int, fused: bool = True,
+                        device=None):
+    """:func:`dynamic_logit_model` on :func:`dynamic_logit_observations`
+    through the fused filter or the general driver, as :func:`build_sv`."""
+    return _build_scalar_filter(
+        dynamic_logit_model(), 0.0, _sv_stationary_sd(AR_PHI, AR_SIGMA),
+        dynamic_logit_observations(n_steps), n_particles, fused, device)
+
+
+def build_quantised(n_particles: int, n_steps: int, fused: bool = True,
+                    device=None):
+    """:func:`quantised_model` on :func:`quantised_observations` through
+    the fused filter or the general driver, as :func:`build_sv`."""
+    return _build_scalar_filter(
+        quantised_model(), 0.0, _sv_stationary_sd(AR_PHI, AR_SIGMA),
+        quantised_observations(n_steps), n_particles, fused, device)
 
 
 def _hmm_problem(n_states: int, n_steps: int, device: torch.device):

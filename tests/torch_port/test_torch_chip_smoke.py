@@ -24,11 +24,23 @@ import math
 import os
 import sys
 
+import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 import chip_smoke  # noqa: E402
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a rehearsal of 2^12-element filters: the
+    suite's workers share the host's cores, and such ops slow down
+    tenfold when each worker takes them all."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_profiled_falls_back_to_cuda_events(monkeypatch, capsys):
@@ -356,7 +368,7 @@ def test_phase_32_rehearsal(capsys):
     json.dumps(chip_smoke.finite_or_none(out))
 
 
-def test_phase_33_rehearsal(monkeypatch, capsys, tmp_path):
+def test_phase_33_rehearsal(monkeypatch, capsys, tmp_path, one_thread):
     """Phase 33 on the CPU at 4096 particles x 32 steps: the fused filter
     on each generated model with its launches counted at the step the
     kernel serves (by the name of the CUDA form it would launch), CDF
@@ -456,3 +468,87 @@ def test_log_matmul_grad_check_rehearsal(monkeypatch, capsys):
     assert dhmm.log_matmul is kernel_route
     assert "[8 log_matmul gradient]" in capsys.readouterr().out
     assert out["filter_grad_err"] <= 1e-4
+
+
+def test_phase_34_rehearsal(monkeypatch, capsys, tmp_path, one_thread):
+    """Phase 34 on the CPU at 4096 particles x 32 steps, counted as phase
+    33's rehearsal counts: each of ``GEN34_MODELS`` through the fused
+    filter (its launches counted at the step the kernel serves, by the
+    name of the CUDA form it would launch) against the general driver
+    over 8 keys, the timing stubbed; and phase 4's comparison of each new
+    header with its plain version (both plain on the CPU), the quantised
+    model's step count included."""
+    import genjax_torch.inference.smc as smc_mod
+    from genjax_torch.core import random
+    from genjax_torch.inference import pf as pf_mod
+    from genjax_torch.ops import _build, fused_model
+    from genjax_torch.ops import fused_step as fs
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, reps: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "profiled",
+                        lambda fn, reps: (fn(), (2.0, 1.0, {}, 1.0, 0.1))[1])
+    monkeypatch.setattr(chip_smoke, "GEN_SIZE", (4096, 32))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(fused_model, "BUILD_DIR", str(tmp_path))
+    launches = {"cdf_counts": 0, "fused_step": 0}
+    by_model = {}
+    cdf, step = smc_mod.systematic_cumulative, pf_mod.fused_step
+
+    def counted_cdf(*args, **kwargs):
+        launches["cdf_counts"] += 1
+        return cdf(*args, **kwargs)
+
+    @functools.lru_cache
+    def generated(propagate, loglik):
+        return fused_model.cuda_model(propagate, loglik)
+
+    def counted_step(seeds, xs, lw, obs, propagate, loglik, *,
+                     cuda_model=None, state_dtype=torch.float32):
+        model = cuda_model or generated(propagate, loglik)
+        launches["fused_step"] += 1
+        by_model[model.name] = by_model.get(model.name, 0) + 1
+        return step(seeds, xs, lw, obs, propagate, loglik,
+                    cuda_model=cuda_model, state_dtype=state_dtype)
+
+    monkeypatch.setattr(smc_mod, "systematic_cumulative", counted_cdf)
+    monkeypatch.setattr(pf_mod, "fused_step", counted_step)
+    monkeypatch.setattr(fs.fused_step, "launches_by_model", by_model)
+
+    def counts():
+        return {**launches, "log_matmul": 0, "expand_adaptive": 0}
+
+    def zero_counts():
+        launches.update(cdf_counts=0, fused_step=0)
+        by_model.clear()
+
+    forms = chip_smoke.generated_models("cpu")
+    gen = {k: fused_model.cuda_model(*forms[k])
+           for k in chip_smoke.GEN34_MODELS}
+    dev = torch.device("cpu")
+    inputs = (random.key_data(random.key(3)), random.normal(
+        random.key(1), (4096,)), 0.3 * random.normal(random.key(2), (4096,)),
+        torch.tensor(2.5))
+    errs = {k: chip_smoke.fused_vs_plain(
+        f"generated {k}", *forms[k], gen[k], inputs,
+        steps=chip_smoke.quantised_steps if k == "quantised" else None,
+        bound=chip_smoke.GEN34_BOUND) for k in gen}
+    assert errs == {k: 0.0 for k in gen}
+    out = chip_smoke.generated_ops_phase(dev, "cpu", zero_counts, counts,
+                                         gen, inputs)
+    text = capsys.readouterr().out
+    assert "weights a step apart" in text
+    assert text.count("1e-05 + 1e-05 |plain| on each f32 state") == 9
+    for part in ("a dynamic_logit key 7", "a dynamic_logit]",
+                 "b quantised key 0", "b quantised]", "c ops key 3",
+                 "c ops]", "timing"):
+        assert f"[34 {part}" in text
+    for k in chip_smoke.GEN34_MODELS:
+        assert out[k]["launches"]["by_model"] == {gen[k].name: 32}
+        assert out[k]["launches"]["cdf_counts"] >= 1
+        assert len(out[k]["log_z_fused"]) == (
+            chip_smoke.GEN34_OPS_KEYS if k == "ops" else chip_smoke.GEN34_KEYS)
+    assert set(out["timing"]) == {"tracking.cuh", "gen_ops",
+                                  "gen_dynamic_logit", "gen_quantised"}
+    json.dumps(chip_smoke.finite_or_none(out))
