@@ -7,19 +7,21 @@ Phases (each prints one line; any failure exits non-zero):
   1. card: name and power limit from nvidia-smi;
   2. build: the four CUDA C++ kernels (CDF->counts, log-matmul,
      expand_adaptive, and the fused step once per model header: the
-     hand-written tracking and linear ones, and the seven that
+     hand-written tracking and linear ones, and the ten that
      genjax_torch/ops/fused_model.py generates from the torch forms of
      phase 33's four models, the ops model (every op and value type the
-     generator took after them) and phase 34's two), from the sources in
-     the checkout, into genjax_torch/_build/: twelve nvcc processes, all
-     started together, each generated model's nvcc seconds;
+     generator took after them), phase 34's three and the two long loops
+     (33 and 1100 float constants)), from the sources in the checkout,
+     into genjax_torch/_build/: fifteen nvcc processes, all started
+     together, each generated model's nvcc seconds and float constants;
   3. the CDF->counts kernel against its plain version in five weight
      regimes at n = 1, 4097, 2^19, 2^20, a ragged size and 2^24 (more
      tiles than the card holds at once), and its device ops per call;
   4. the fused-step kernel: its threefry words bit for bit against
      core.random (through the library's second entry point), then against
      its plain version at 2^20, f32 and bf16 state, and at a ragged size,
-     with tracking.cuh and with each generated header (the quantised
+     with tracking.cuh and with each generated header, the long loops'
+     1100 constants read from the device included (the quantised
      model's lw may part at its grid's steps, where a few ulps of the new
      state move the rounding: counted, each at a step, at most
      GEN_STEP_MISMATCHES);
@@ -219,8 +221,11 @@ Phases (each prints one line; any failure exits non-zero):
      the general driver on the same model (4 se): (a) a dynamic logit
      model (AR(1) logits, binary observations, bernoulli.logpdf(y > 0.5,
      x)), (b) a quantised sensor (logistic.logpdf(y, 0.5 round(x / 0.5),
-     0.3)), (c) the ops model (4 keys). Each run: 32 fused launches from
-     the generated library, one CDF launch a resample, log Z,
+     0.3)), (c) the ops model (4 keys), (d) a heavy-tailed sensor
+     (lambert_w_normal.logpdf(y, x, 0.5, 0.2): Halley's iterations
+     unrolled, 81 float constants); (e) the long loops with 33 and 1100
+     float constants, one fused run each. Each run: 32 fused launches
+     from the generated library, one CDF launch a resample, log Z,
      particle-steps/s; then each new kernel's time a call at 2^20 beside
      tracking.cuh's, in turns.
 Phases 24-27 each print the wall of a run (the median of 3), its rate,
@@ -532,6 +537,20 @@ def sass_int_ops(library: str, kernel: str) -> int:
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
+
+
+def header_f32_ops(model: str) -> int:
+    """f32 operations an element of a generated header's ``propagate`` and
+    ``loglik`` takes at least: its lines that compute a float (one
+    operation or more each; a fused ``a * b + c`` counts two, as the f32
+    peak does)."""
+    import re
+
+    from genjax_torch.ops.fused_model import header_path
+
+    with open(header_path(model)) as f:
+        return sum(bool(re.match(r"\s*const float v\d+ = .*[-+*/(]", line))
+                   for line in f)
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -4174,7 +4193,13 @@ def live_linear(dev):
 #: all three through the fused filter; phase 4 holds each to its plain
 #: version).
 GEN33_MODELS = ("sv", "linear", "tracking", "live")
-GEN34_MODELS = ("ops", "dynamic_logit", "quantised")
+GEN34_MODELS = ("ops", "dynamic_logit", "quantised", "lambert_w")
+#: Phase 34 (e): models whose float constants the launch reads from the
+#: device, more than a classic 4 KB kernel parameter space would hold at
+#: 1100: label -> constants (:func:`long_loop_model`), one fused run each
+#: (the 1100-step trace takes seconds a run); phase 4 holds their headers
+#: to ``GEN34_BOUND``.
+GEN_LONG_LOOPS = {"long_loop": 33, "long_loop_1100": 1100}
 #: Phase 34: keys a model, fused against the general driver; the ops
 #: model's run traces ~150 ops (~0.8 s on the card's host), so it takes
 #: fewer.
@@ -4186,7 +4211,8 @@ GEN34_OPS_KEYS = 4
 #: is expected), and how near a step such a state lies, in grid units.
 GEN_STEP_MISMATCHES = 16
 GEN_STEP_WIDTH = 1e-4
-#: Phase 4's bound on the headers of ``GEN34_MODELS``, ``(atol, rtol)``
+#: Phase 4's bound on the headers of ``GEN34_MODELS`` and
+#: ``GEN_LONG_LOOPS``, ``(atol, rtol)``
 #: on each state and log-weight: their states are not amplified as the
 #: tracking model's are (which the default bounds serve), so an op's
 #: term that is wrong on the card shows above its ulps.
@@ -4288,17 +4314,41 @@ def ops_model(dev):
     return propagate, loglik
 
 
+def long_loop_model(n_params: int, phi: float = 0.9):
+    """A model with ``n_params`` float constants, each read once, as a
+    Python loop unrolled over them gives: ``propagate`` runs its draw
+    through ``n_params - 3`` steps ``v = v c_k + eps``, each step its own
+    ``c_k`` in [0.25, 0.5] (so an early step's rounding shrinks in the
+    later ones), and returns ``phi x + 0.15 v``; ``loglik`` is
+    ``-0.5 (y - x)^2``. ``(propagate, loglik)``."""
+    cs = [0.25 + 0.25 * k / (n_params - 4) for k in range(n_params - 3)]
+
+    def propagate(x, e):
+        v = e
+        for c in cs:
+            v = v * c + e
+        return phi * x + 0.15 * v
+
+    def loglik(x, y):
+        return -0.5 * (y - x) ** 2
+
+    return propagate, loglik
+
+
 def generated_models(dev) -> dict:
     """The torch forms of the generated models, by label: ``(propagate,
-    loglik)``: phase 33's (``GEN33_MODELS``) and the ops model and phase
-    34's two (``GEN34_MODELS``)."""
+    loglik)``: phase 33's (``GEN33_MODELS``), the ops model and phase
+    34's three (``GEN34_MODELS``) and the long loops
+    (``GEN_LONG_LOOPS``)."""
     from genjax_torch import entry as E
 
     return {"sv": E.sv_model(), "linear": E.linear_model(*GEN_LINEAR),
             "tracking": (E.tracking_propagate, E.tracking_loglik),
             "live": live_linear(dev)[:2], "ops": ops_model(dev),
             "dynamic_logit": E.dynamic_logit_model(),
-            "quantised": E.quantised_model()}
+            "quantised": E.quantised_model(),
+            "lambert_w": E.lambert_w_model(),
+            **{k: long_loop_model(c) for k, c in GEN_LONG_LOOPS.items()}}
 
 
 class FusedRuns:
@@ -4586,28 +4636,41 @@ def generated_phase(dev, card: str, zero_counts, counts, gen: dict,
     return out
 
 
+#: Phase 34 (e): the long loops' readings, from the linear-Gaussian
+#: model nearest theirs (x' = 0.9 x + 0.15 v, v about 1.9 eps; unit
+#: observation noise), and their ensembles' start N(0, sd^2).
+GEN_LONG_LINEAR = (0.9, 0.08, 1.0)
+GEN_LONG_SD = 0.65
+
+
 def generated_ops_phase(dev, card: str, zero_counts, counts, gen: dict,
                         step_inputs: tuple) -> dict:
     """Phase 34: the models whose generated headers need bool and int32
-    values, rounding and ``logaddexp`` (``GEN34_MODELS``, built in phase
-    2) through the fused filter at config 4's width, each over
-    ``GEN34_KEYS`` keys (the ops model ``GEN34_OPS_KEYS``) against the
-    general driver on the same model,
-    each run counted from 0; then each new kernel's time a call at 2^20
-    beside ``tracking.cuh``'s, in turns."""
+    values, rounding and ``logaddexp``, and the heavy-tailed sensor whose
+    ``lambert_w_normal`` density unrolls to 81 float constants
+    (``GEN34_MODELS``, built in phase 2), through the fused filter at
+    config 4's width, each over ``GEN34_KEYS`` keys (the ops model
+    ``GEN34_OPS_KEYS``) against the general driver on the same model;
+    then one fused run of each long loop (``GEN_LONG_LOOPS``); each run
+    counted from 0; then each new kernel's time a call at 2^20 beside
+    ``tracking.cuh``'s, in turns."""
     from genjax_torch import entry as E
+    from genjax_torch.core import random
 
     t_phase = time.perf_counter()
     n, t = GEN_SIZE
     forms = generated_models(dev)
     ops_ys = E.quantised_observations(t, seed=1)
-    builders = {  # in this order: (a), (b), (c)
+    long_ys = E.linear_observations(t, 3, *GEN_LONG_LINEAR)
+    builders = {  # in this order: (a) to (d)
         "dynamic_logit": ("a", lambda fused: E.build_dynamic_logit(
             n, t, fused=fused, device=dev)),
         "quantised": ("b", lambda fused: E.build_quantised(
             n, t, fused=fused, device=dev)),
         "ops": ("c", lambda fused: E._build_scalar_filter(
             forms["ops"], 0.0, 1.0, ops_ys, n, fused, dev)),
+        "lambert_w": ("d", lambda fused: E.build_lambert_w(
+            n, t, fused=fused, device=dev)),
     }
     out = {}
     with FusedRuns("34", card, zero_counts, counts, n, t) as runs:
@@ -4620,16 +4683,27 @@ def generated_ops_phase(dev, card: str, zero_counts, counts, gen: dict,
                                        dev)
             m_f = sum(res["log_z_fused"]) / keys
             m_g = sum(res["log_z_general"]) / keys
-            print(f"[34 {tag} {k}] {card}: mean log Z over {keys} "
+            print(f"[34 {tag} {k}] {card}: {len(gen[k].params)} float "
+                  f"constants; mean log Z over {keys} "
                   f"keys fused (generated) {m_f:.5f} vs general driver "
                   f"{m_g:.5f}: |diff| {res['diff']:.3g}, 4 se "
                   f"{4 * res['se']:.3g}; particle-steps/s {res['rates']}",
                   flush=True)
             out[k] = res
+        for seed, k in enumerate(GEN_LONG_LOOPS):
+            run_f, _ = E._build_scalar_filter(forms[k], 0.0, GEN_LONG_SD,
+                                              long_ys, n, True, dev)
+            z, wall, got = runs.run(f"e {k}", run_f,
+                                    random.key(700 + seed, device=dev),
+                                    gen[k].name)
+            runs.line(f"e {k}", z, wall, got,
+                      f"; {len(gen[k].params)} float constants")
+            out[k] = {"log_z": z, "wall_s": wall, "launches": got}
     out["timing"] = time_generated(card, "34", {
         "tracking.cuh": (E.tracking_propagate, E.tracking_loglik,
                          E.TRACKING_CUDA),
-        **{f"gen_{k}": (*forms[k], gen[k]) for k in GEN34_MODELS}},
+        **{f"gen_{k}": (*forms[k], gen[k])
+           for k in (*GEN34_MODELS, *GEN_LONG_LOOPS)}},
         step_inputs)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[34] {card}: phase 34 in {out['phase_s']:.1f} s", flush=True)
@@ -4706,8 +4780,14 @@ def _main(started: dict) -> int:
           f"(tracking, linear, generated {', '.join(gen)}): {len(builds)} "
           f"nvcc sm_90a in parallel, {nvcc_s:.1f} s (the generated headers "
           f"traced and written in {gen_s:.2f} s; nvcc a generated model, "
-          f"in the pool: {gen_nvcc_s}); launched in "
+          f"in the pool: {gen_nvcc_s}; float constants: "
+          f"{ {k: len(m.params) for k, m in gen.items()} }); launched in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    largest = max(gen, key=lambda k: len(gen[k].params))
+    print(f"[clock] phase 2: nvcc of the largest header, {largest} "
+          f"({len(gen[largest].params)} float constants, read from the "
+          f"device): {gen_nvcc_s[largest]:.1f} s in the pool; the build "
+          f"done at {time.perf_counter() - T_START:.1f} s", flush=True)
 
     clock("3")
     # -- 3. cdf kernel vs plain --------------------------------------------
@@ -4799,7 +4879,8 @@ def _main(started: dict) -> int:
     gen_step_err = {k: fused_vs_plain(
         f"generated {k}", *gen_fns[k], gen[k], step_inputs,
         steps=quantised_steps if k == "quantised" else None,
-        bound=GEN34_BOUND if k in GEN34_MODELS else None) for k in gen}
+        bound=(GEN34_BOUND if k in GEN34_MODELS or k in GEN_LONG_LOOPS
+               else None)) for k in gen}
     wide = torch.tensor([3e9, -3e9, float("nan")], device=dev)
     print(f"[4 fused_step generated ops] f32 -> int32 of 3e9, -3e9, NaN on "
           f"the card: torch's cast {wide.to(torch.int32).tolist()}, "
@@ -5582,10 +5663,14 @@ def _main(started: dict) -> int:
            "max_abs_err": gen_step_err[k],
            "ms": gen_out["timing"][f"gen_{k}"]["ms"],
            "plain_ms": gen_out["timing"][f"gen_{k}"]["plain_ms"],
-           "bound_ms": fused_bound, "bound_by": fused_by,
+           **dict(zip(("bound_ms", "bound_by"), max(
+               (fused_bound, fused_by),
+               (header_f32_ops(gen[k].name) * n_part / F32_OPS_PER_S * 1e3,
+                "operations")))),
+           "f32_ops_per_element": header_f32_ops(gen[k].name),
            "library_ms": None,
            "device_ms": gen_out["timing"][f"gen_{k}"]["device_ms"],
-           "nvcc_s": gen_nvcc_s[k], "params": list(gen[k].params),
+           "nvcc_s": gen_nvcc_s[k], "n_params": len(gen[k].params),
            "phase": 33 if k in GEN33_MODELS else 34}
           for k in gen
           for gen_out in ((gen33 if k in GEN33_MODELS else gen34),)),

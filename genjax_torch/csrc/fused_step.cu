@@ -19,10 +19,16 @@
 //
 // The model comes in at compile time: nvcc pre-includes one header
 // (-include), which defines fused_model::propagate, loglik and kParams,
-// the number of float constants it reads; the constants come in by value
-// with the launch. The header is a hand-written one of csrc/models/ or
-// one that genjax_torch/ops/fused_model.py generated from the model's
-// torch form. One library is built per header.
+// the number of float constants it reads. The header is a hand-written
+// one of csrc/models/ or one that genjax_torch/ops/fused_model.py
+// generated from the model's torch form. One library is built per header.
+// The constants, any number of them, come in an f32 buffer on the device
+// that the launch points to: every thread reads a constant at the same
+// address, so each read is one broadcast load from the read-only path,
+// which L1 serves after a block's first. The compiler loads a constant
+// once for a thread's four elements and keeps it in a register; with a
+// thousand constants those registers overflow and ptxas spills them to
+// local memory, which such a model pays for.
 //
 // The key's two words and the observation are read from device memory, so
 // a step needs no host sync. Counters are the flat index in uint32 (any
@@ -57,14 +63,6 @@ constexpr int kItems = 4;
 constexpr int kTile = kThreads * kItems;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-// The model constants a launch carries (fused_model.py's MAX_PARAMS).
-constexpr int kMaxParams = 32;
-
-static_assert(fused_model::kParams <= kMaxParams, "too many model constants");
-
-struct Params {
-  float v[kMaxParams];
-};
 
 // threefry2x32, 20 rounds (Random123), of the counter words (ctr, 0).
 __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
@@ -214,7 +212,8 @@ __global__ void __launch_bounds__(kThreads)
 step(const int64_t* __restrict__ key, const float* __restrict__ obs,
      const State* __restrict__ xs, const float* __restrict__ lw,
      State* __restrict__ xs_out, float* __restrict__ lw_out, float4* parts,
-     float* stats, unsigned* ticket, long long n, Params p, bool vec) {
+     float* stats, unsigned* ticket, long long n,
+     const float* __restrict__ p, bool vec) {
   __shared__ float mbuf[kWarps];
   __shared__ float2 sbuf[kWarps];
   __shared__ bool last;
@@ -237,8 +236,8 @@ step(const int64_t* __restrict__ key, const float* __restrict__ obs,
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
     const float eps = normal_from_counter(k0, k1, (uint32_t)(i0 + j));
-    x[j] = fused_model::propagate(x[j], eps, p.v);
-    w[j] = w[j] + fused_model::loglik(x[j], y, p.v);
+    x[j] = fused_model::propagate(x[j], eps, p);
+    w[j] = w[j] + fused_model::loglik(x[j], y, p);
     if (i0 + j < n) m = nan_max(m, w[j]);
   }
   if (full) {
@@ -306,19 +305,17 @@ long long fused_step_partial_floats(long long n) {
 // fused_step_partial_floats(n) floats, 16-byte aligned; stats: f32[2],
 // receives (lse, ess); ticket: one unsigned, 0 before the launch and 0
 // again after it (launches that share it must run one after another, as
-// on one stream); params: n_params host floats, the model's constants.
-// All but params on the device. Launches on `stream` and returns
-// cudaGetLastError().
+// on one stream); params: n_params floats, the model's constants (null
+// where there are none). All on the device. Launches on `stream` and
+// returns cudaGetLastError().
 int fused_step_launch(const int64_t* key, const float* obs, const void* xs,
                       const float* lw, void* xs_out, float* lw_out,
                       float* parts, float* stats, unsigned* ticket,
                       long long n, int bf16, const float* params,
                       int n_params, void* stream) {
   if (n <= 0 || n > 0xffffffffLL || n_params != fused_model::kParams ||
-      !aligned(parts, 16))
+      (n_params > 0 && params == nullptr) || !aligned(parts, 16))
     return (int)cudaErrorInvalidValue;
-  Params p = {};
-  for (int i = 0; i < n_params; ++i) p.v[i] = params[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned blocks = (unsigned)((n + kTile - 1) / kTile);
   float4* part4 = reinterpret_cast<float4*>(parts);
@@ -328,13 +325,13 @@ int fused_step_launch(const int64_t* key, const float* obs, const void* xs,
     auto* xo = static_cast<__nv_bfloat16*>(xs_out);
     const bool vec = lw_vec && aligned(x, 8) && aligned(xo, 8);
     step<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        key, obs, x, lw, xo, lw_out, part4, stats, ticket, n, p, vec);
+        key, obs, x, lw, xo, lw_out, part4, stats, ticket, n, params, vec);
   } else {
     const auto* x = static_cast<const float*>(xs);
     auto* xo = static_cast<float*>(xs_out);
     const bool vec = lw_vec && aligned(x, 16) && aligned(xo, 16);
     step<float><<<blocks, kThreads, 0, s>>>(
-        key, obs, x, lw, xo, lw_out, part4, stats, ticket, n, p, vec);
+        key, obs, x, lw, xo, lw_out, part4, stats, ticket, n, params, vec);
   }
   return (int)cudaGetLastError();
 }

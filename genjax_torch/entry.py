@@ -590,6 +590,42 @@ def build_quantised(n_particles: int, n_steps: int, fused: bool = True,
         quantised_observations(n_steps), n_particles, fused, device)
 
 
+#: The AR(1) state read by a heavy-tailed sensor: Lambert W x Gaussian
+#: noise (Goerg 2011) of scale ``LW_SCALE`` and tail weight ``LW_TAIL``,
+#: whose density inverts the reading through the Lambert W function
+#: (:func:`lambert_w_model`).
+LW_SCALE, LW_TAIL = 0.5, 0.2
+
+
+def lambert_w_model():
+    """The heavy-tailed sensor's torch form: ``(propagate, loglik)``,
+    ``loglik = lambert_w_normal.logpdf(y, x, LW_SCALE, LW_TAIL)``."""
+
+    def loglik(x, y):
+        return g.lambert_w_normal.logpdf(y, x, LW_SCALE, LW_TAIL)
+
+    return _ar_propagate, loglik
+
+
+def lambert_w_observations(n_steps: int = 32) -> np.ndarray:
+    """Readings simulated from :func:`lambert_w_model` with numpy, as
+    ``lambert_w_normal``'s sampler transforms a standard normal."""
+    rng = np.random.default_rng(2)
+    x = _ar_path(n_steps, rng)
+    u = rng.normal(size=n_steps)
+    return (x + LW_SCALE * u * np.exp(LW_TAIL * u * u / 2.0)).astype(
+        np.float32)
+
+
+def build_lambert_w(n_particles: int, n_steps: int, fused: bool = True,
+                    device=None):
+    """:func:`lambert_w_model` on :func:`lambert_w_observations` through
+    the fused filter or the general driver, as :func:`build_sv`."""
+    return _build_scalar_filter(
+        lambert_w_model(), 0.0, _sv_stationary_sd(AR_PHI, AR_SIGMA),
+        lambert_w_observations(n_steps), n_particles, fused, device)
+
+
 def _hmm_problem(n_states: int, n_steps: int, device: torch.device):
     """Bench config 3's problem: ``circulant(S, S)`` and a path drawn by
     ``sample_problem(key(3), ...)``, with its exact log marginal."""

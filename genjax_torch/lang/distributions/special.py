@@ -32,23 +32,17 @@ def _f(x, like=None) -> torch.Tensor:
 
 def lambertw(x, iters: int = 20) -> torch.Tensor:
     """Principal branch W0 for x >= -1/e, by Halley's method (a fixed
-    number of iterations). The iterations' 1 and 2 are made once, so that
-    the fused step's CUDA form (``ops/fused_model.py``) carries them as
-    two constants, not two an iteration: a workaround for the 32 float
-    constants a launch carries (``fused_model.MAX_PARAMS``), which the
-    unrolled loop would pass (79); the TPU kernel has no such limit."""
+    number of iterations)."""
     x = _f(x)
     lx = torch.log(torch.clamp(x, min=1e-30))
     w = torch.where(x > math.e, lx - torch.log(torch.clamp(lx, min=1e-30)),
                     x / (1.0 + x * (1.0 + x)))
     w = torch.where(x == 0.0, torch.zeros_like(w), w)
-    one = torch.ones_like(w)
-    two = one + one
     for _ in range(iters):
         ew = torch.exp(w)
         f = w * ew - x
-        w1 = w + one
-        w = w - f / (ew * w1 - (w + two) * f / (two * w1))
+        w1 = w + 1.0
+        w = w - f / (ew * w1 - (w + 2.0) * f / (2.0 * w1))
     return w
 
 

@@ -63,12 +63,11 @@ reaches the card without a hand-written header:
    ``params`` change. The constants are read when the model is
    generated: a callable that reads them from a global, a closure, a
    list or a 0-d tensor changed in place gives the new values on the
-   next generation (the fused filter generates once a run). A launch
-   carries at most :data:`MAX_PARAMS` of them (``kMaxParams``), and
-   equal constants are not merged: a model with more raises
-   ``ValueError``, where the TPU kernel takes any number. A Python loop
-   of 33 steps with a constant each is refused, whereas its
-   ``fori_loop`` lowers;
+   next generation (the fused filter generates once a run). A model may
+   have any number of them, as the TPU kernel may: the launch reads them
+   from a buffer on the device. Equal constants are not merged, so a
+   Python loop unrolled over 1100 steps with a constant each carries
+   1100;
 
 The header uses C math functions (``expf``, ``log1pf``, ...) and IEEE
 ``/`` only, so the same text compiles on the host (the CPU tests build it
@@ -93,10 +92,7 @@ import torch
 from genjax_torch.ops._build import BUILD_DIR
 from genjax_torch.ops.fused_step import CudaModel
 
-__all__ = ["MAX_PARAMS", "model_source", "cuda_model", "header_path"]
-
-#: ``kMaxParams`` of ``csrc/fused_step.cu``: the constants a launch carries.
-MAX_PARAMS = 32
+__all__ = ["model_source", "cuda_model", "header_path"]
 
 _aten = torch.ops.aten
 _F32, _BOOL, _I32 = torch.float32, torch.bool, torch.int32
@@ -802,8 +798,7 @@ def model_source(propagate: Callable, loglik: Callable, device="cpu"
     """The CUDA header of the model ``propagate(x, eps)`` /
     ``loglik(x_new, obs)`` and its constants as they are now, in the
     order ``p[]`` reads them, traced on ``device``. Raises
-    ``ValueError`` on an op the header cannot take or more than
-    :data:`MAX_PARAMS` constants."""
+    ``ValueError`` on an op the header cannot take."""
     params: list[float] = []
     helpers: set = set()
     bodies = []
@@ -814,12 +809,6 @@ def model_source(propagate: Callable, loglik: Callable, device="cpu"
         for node in gm.graph.nodes:
             em.node(node, gm)
         bodies.append((len(params), "\n".join(em.lines)))
-    if len(params) > MAX_PARAMS:
-        raise ValueError(
-            f"fused_model: the model has {len(params)} float constants "
-            f"(propagate {_describe(propagate)}: {bodies[0][0]}, loglik "
-            f"{_describe(loglik)}: {len(params) - bodies[0][0]}); a launch "
-            f"carries at most {MAX_PARAMS}")
     used = [text for name, text in _HELPERS if name in helpers]
     source = _HEADER.format(
         n_prop=bodies[0][0], n_all=len(params), prop=bodies[0][1],

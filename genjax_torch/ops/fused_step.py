@@ -21,7 +21,9 @@ pair of ``lw`` and ``2·lw``, and the last block to finish folds them in
 a fixed order (no float atomics), so a step is one launch and no host
 sync: the key's words and the observation are read through pointers
 from device tensors. The host path of a call is the checks, one
-``torch.empty`` (two for bf16 state) and one ctypes call.
+``torch.empty`` (two for bf16 state) and one ctypes call; the first call
+with a tuple of constants also copies them to the device
+(:func:`param_table`), where the kernel reads them, any number of them.
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ class CudaModel(NamedTuple):
     .cuh``, or for a ``gen_<sha256>`` name the one that
     :func:`~genjax_torch.ops.fused_model.cuda_model` generated, defines
     its ``propagate`` and ``loglik``, which read ``params`` (float
-    constants, in the order the header lists)."""
+    constants, any number, in the order the header lists; the launch
+    reads them from a copy on the device, :func:`param_table`)."""
 
     name: str
     params: tuple[float, ...]
@@ -107,8 +110,8 @@ def build(model: str) -> ctypes.CDLL:
                             include=header)
     p = ctypes.c_void_p
     lib.fused_step_launch.argtypes = [
-        p, p, p, p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int, p,
+        p, p, p, p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_int, p,
+        ctypes.c_int, p,
     ]
     lib.fused_step_launch.restype = ctypes.c_int
     lib.fused_step_partial_floats.argtypes = [ctypes.c_longlong]
@@ -124,10 +127,28 @@ def _scratch_floats(model: str, n: int) -> int:
     return build(model).fused_step_partial_floats(n)
 
 
-@functools.lru_cache(maxsize=64)
-def param_array(params: tuple[float, ...]) -> ctypes.Array:
-    """The model's constants as the float array the launch copies."""
-    return (ctypes.c_float * len(params))(*params)
+#: ``param_table``'s tables: (id of the tuple, device) -> (tuple, table).
+_tables: dict = {}
+_TABLES_KEPT = 64
+
+
+def param_table(params: tuple[float, ...], device) -> torch.Tensor:
+    """The model's constants as the f32 tensor on ``device`` that the
+    launch points to, any number of them. It is made once for each
+    ``params`` tuple and device: a generated model's tuple is new at each
+    generation (once a fused filter run), a :class:`CudaModel`'s lives as
+    long as it does, so a run's steps copy the constants once. Keyed by
+    the tuple's identity, not its values, so a -0.0 keeps its sign; the
+    last ``_TABLES_KEPT`` are kept."""
+    key = (id(params), device)
+    hit = _tables.get(key)
+    if hit is not None and hit[0] is params:
+        return hit[1]
+    table = torch.tensor(params, dtype=torch.float32, device=device)
+    if len(_tables) >= _TABLES_KEPT:
+        del _tables[next(iter(_tables))]
+    _tables[key] = (params, table)
+    return table
 
 
 @functools.cache
@@ -208,7 +229,7 @@ def fused_step(seeds, xs, lw, obs, propagate, loglik, *,
         seeds.data_ptr(), obs.data_ptr(), xs.data_ptr(), lw.data_ptr(),
         xs_new.data_ptr(), base + 4 * head, base + 4 * (head + pad),
         base + 4 * stats_at, _ticket(dev, stream).data_ptr(), n,
-        int(not f32_state), param_array(cuda_model.params),
+        int(not f32_state), param_table(cuda_model.params, dev).data_ptr(),
         len(cuda_model.params), stream,
     )
     if err != 0:

@@ -475,9 +475,10 @@ def test_phase_34_rehearsal(monkeypatch, capsys, tmp_path, one_thread):
     33's rehearsal counts: each of ``GEN34_MODELS`` through the fused
     filter (its launches counted at the step the kernel serves, by the
     name of the CUDA form it would launch) against the general driver
-    over 8 keys, the timing stubbed; and phase 4's comparison of each new
-    header with its plain version (both plain on the CPU), the quantised
-    model's step count included."""
+    over its keys and one fused run of each of ``GEN_LONG_LOOPS``, the
+    timing stubbed; and phase 4's comparison of each new header with its plain
+    version (both plain on the CPU), the quantised model's step count
+    included."""
     import genjax_torch.inference.smc as smc_mod
     from genjax_torch.core import random
     from genjax_torch.inference import pf as pf_mod
@@ -524,8 +525,10 @@ def test_phase_34_rehearsal(monkeypatch, capsys, tmp_path, one_thread):
         by_model.clear()
 
     forms = chip_smoke.generated_models("cpu")
-    gen = {k: fused_model.cuda_model(*forms[k])
-           for k in chip_smoke.GEN34_MODELS}
+    models = (*chip_smoke.GEN34_MODELS, *chip_smoke.GEN_LONG_LOOPS)
+    gen = {k: fused_model.cuda_model(*forms[k]) for k in models}
+    assert {k: len(gen[k].params) for k in chip_smoke.GEN_LONG_LOOPS} == \
+        chip_smoke.GEN_LONG_LOOPS
     dev = torch.device("cpu")
     inputs = (random.key_data(random.key(3)), random.normal(
         random.key(1), (4096,)), 0.3 * random.normal(random.key(2), (4096,)),
@@ -539,16 +542,23 @@ def test_phase_34_rehearsal(monkeypatch, capsys, tmp_path, one_thread):
                                          gen, inputs)
     text = capsys.readouterr().out
     assert "weights a step apart" in text
-    assert text.count("1e-05 + 1e-05 |plain| on each f32 state") == 9
+    assert text.count("1e-05 + 1e-05 |plain| on each f32 state") == \
+        3 * len(models)
     for part in ("a dynamic_logit key 7", "a dynamic_logit]",
                  "b quantised key 0", "b quantised]", "c ops key 3",
-                 "c ops]", "timing"):
+                 "c ops]", "d lambert_w key 7", "d lambert_w]",
+                 "e long_loop]", "e long_loop_1100]", "timing"):
         assert f"[34 {part}" in text
-    for k in chip_smoke.GEN34_MODELS:
+    assert "[34 d lambert_w] cpu: 81 float constants" in text
+    assert "1100 float constants" in text
+    for k in models:
         assert out[k]["launches"]["by_model"] == {gen[k].name: 32}
         assert out[k]["launches"]["cdf_counts"] >= 1
+    for k in chip_smoke.GEN34_MODELS:
         assert len(out[k]["log_z_fused"]) == (
             chip_smoke.GEN34_OPS_KEYS if k == "ops" else chip_smoke.GEN34_KEYS)
-    assert set(out["timing"]) == {"tracking.cuh", "gen_ops",
-                                  "gen_dynamic_logit", "gen_quantised"}
+    for k in chip_smoke.GEN_LONG_LOOPS:
+        assert math.isfinite(out[k]["log_z"])
+    assert set(out["timing"]) == {"tracking.cuh",
+                                  *(f"gen_{k}" for k in models)}
     json.dumps(chip_smoke.finite_or_none(out))

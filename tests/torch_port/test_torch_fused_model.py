@@ -16,6 +16,7 @@ test_torch_slice.py's config-4 check and the JAX test's Kalman check."""
 import math
 import os
 import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,10 @@ from genjax_torch.interop import key_from_numpy
 from genjax_torch.ops import fused_model as fm
 from genjax_torch.ops import fused_step as fs
 from genjax_torch.core import random as R
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+import chip_smoke  # noqa: E402
 
 N = 4096
 HARNESS = r"""
@@ -83,7 +88,7 @@ def _inputs(name: str):
             y.astype(np.float32))
 
 
-def _host_build(source: str, tmp_path):
+def _host_build(source: str, tmp_path, opt: str = "-O2"):
     import ctypes
 
     header = tmp_path / "model.cuh"
@@ -92,7 +97,7 @@ def _host_build(source: str, tmp_path):
     cpp.write_text(HARNESS)
     lib = tmp_path / "libmodel.so"
     subprocess.run(
-        ["g++", "-std=c++17", "-O2", "-shared", "-fPIC", "-ffp-contract=off",
+        ["g++", "-std=c++17", opt, "-shared", "-fPIC", "-ffp-contract=off",
          "-D__device__=", "-D__forceinline__=inline", "-include",
          str(header), "-o", str(lib), str(cpp)],
         check=True, capture_output=True, text=True)
@@ -197,16 +202,47 @@ def test_unsupported_forms_raise_naming_op_and_callable(fn, names):
     assert fn.__name__ in str(err.value) and "propagate" in str(err.value)
 
 
-def test_too_many_constants_raise():
-    consts = [0.1 * k for k in range(fm.MAX_PARAMS + 1)]
+@pytest.mark.parametrize("n_params", sorted(chip_smoke.GEN_LONG_LOOPS.values()))
+def test_any_number_of_constants(n_params, tmp_path):
+    """Models with 33 and 1100 float constants (1100 are more than a
+    4 KB kernel parameter space holds; phase 34's long loops): each
+    generates, ``params`` holds every constant in graph order (the
+    loop's, then ``phi`` and 0.15, then loglik's -0.5), and its header's
+    host build matches torch."""
+    propagate, loglik = chip_smoke.long_loop_model(n_params)
+    source, params = fm.model_source(propagate, loglik)
+    cs = [0.25 + 0.25 * k / (n_params - 4) for k in range(n_params - 3)]
+    assert params == tuple(float(np.float32(v))
+                           for v in (*cs, 0.9, 0.15, -0.5))
+    assert f"kParams = {n_params};" in source
+    assert f"p[{n_params - 1}]" in source and f"p[{n_params}]" not in source
+    so = _host_build(source, tmp_path, opt="-O1")
+    x, e, y = _inputs("loop")
+    got_x = _run(so.run_propagate, x, e, params)
+    want_x = propagate(torch.tensor(x), torch.tensor(e)).numpy()
+    np.testing.assert_allclose(got_x, want_x, rtol=1e-5, atol=1e-5)
+    got_l = _run(so.run_loglik, x, y, params)
+    want_l = loglik(torch.tensor(x), torch.tensor(y)).numpy()
+    np.testing.assert_allclose(got_l, want_l, rtol=1e-5, atol=1e-5)
 
-    def propagate(x, e):
-        for c in consts:
-            x = x + c
-        return x + e
 
-    with pytest.raises(ValueError, match="at most 32"):
-        fm.model_source(propagate, E.tracking_loglik)
+def test_many_constants_changed_reuse_the_header(tmp_path, monkeypatch):
+    """The 1100-constant model with another ``phi`` is the same source,
+    so the same header and library, with the new value in its slot of
+    ``params`` and the other 1099 as they were."""
+    monkeypatch.setattr(fm, "BUILD_DIR", str(tmp_path))
+    n_params = chip_smoke.GEN_LONG_LOOPS["long_loop_1100"]
+    model = fm.cuda_model(*chip_smoke.long_loop_model(n_params))
+    other = fm.cuda_model(*chip_smoke.long_loop_model(n_params, phi=0.8))
+    assert other.name == model.name
+    assert len(other.params) == len(model.params) == n_params
+    slot = n_params - 3
+    assert model.params[slot] == float(np.float32(0.9))
+    assert other.params[slot] == float(np.float32(0.8))
+    assert (other.params[:slot] + other.params[slot + 1:]
+            == model.params[:slot] + model.params[slot + 1:])
+    assert os.listdir(os.path.join(str(tmp_path), "models")) == [
+        model.name[4:] + ".cuh"]
 
 
 def test_cuda_model_writes_its_header_once(tmp_path, monkeypatch):

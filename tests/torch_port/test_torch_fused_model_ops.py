@@ -29,11 +29,13 @@
   parameters or values), its particle in the first parameter: the port
   generates its ``logpdf`` exactly when the JAX package's lowers, and a
   refusal names the op the TPU lowering lacks.
-- **Models.** The two models of chip_smoke.py's phase 34 through the
+- **Models.** The three models of chip_smoke.py's phase 34 through the
   port's fused filter and the JAX package's at 4096 particles (where JAX
   takes its jnp reference), their mean log Z over 16 keys within 4
   standard errors; their headers and the ``ops`` model's (every new op
-  and value type) against their torch forms on 4096 seeded inputs.
+  and value type) against their torch forms on 4096 seeded inputs. The
+  rows ``long_loop`` and ``long_loop_1100`` carry 33 and 1100 float
+  constants, one a step of an unrolled loop.
 """
 
 import ctypes
@@ -232,18 +234,20 @@ def _t_loop(x, y):
     return x
 
 
-#: One more step than the launch's constants (``fm.MAX_PARAMS``).
-LONG_LOOP = fm.MAX_PARAMS + 1
+def _long_loop(steps: int):
+    """``x = x * 0.5 + y`` ``steps`` times: jnp's ``fori_loop`` keeps one
+    constant, torch's Python loop unrolls into one a step (``steps`` float
+    constants, read from the device)."""
 
+    def jf(x, y):
+        return jax.lax.fori_loop(0, steps, lambda i, v: v * 0.5 + y, x)
 
-def _j_long_loop(x, y):
-    return jax.lax.fori_loop(0, LONG_LOOP, lambda i, v: v * 0.5 + y, x)
+    def tf(x, y):
+        for _ in range(steps):
+            x = x * 0.5 + y
+        return x
 
-
-def _t_long_loop(x, y):
-    for _ in range(LONG_LOOP):
-        x = x * 0.5 + y
-    return x
+    return jf, tf
 
 
 nn = jax.nn
@@ -414,6 +418,8 @@ ROWS = [
     U("scalar_tensor", lambda x: x + 0.25,
       lambda x: x + torch.scalar_tensor(0.25), "exact"),
     U("closed_f32", lambda x: x * 0.5, lambda x: x * _T_HALF, "exact"),
+    B("long_loop", *_long_loop(33)),
+    B("long_loop_1100", *_long_loop(1100)),
     # -- refused by both ----------------------------------------------------
     U("erf", jss.erf, torch.erf, refused_as="aten.erf"),
     U("erfc", jss.erfc, torch.erfc, refused_as="aten.erfc"),
@@ -452,8 +458,6 @@ ROWS = [
       lambda x: x.double().float(), refused_as="torch.float64"),
     U("to_int16", lambda x: x.astype(jnp.int16),
       lambda x: x.to(torch.int16), refused_as="torch.int16"),
-    B("long_loop", _j_long_loop, _t_long_loop,
-      refused_as="33 float constants"),
 ]
 ROW = {r.name: r for r in ROWS}
 
@@ -473,10 +477,6 @@ EXCEPTIONS = {
                    "keeps f32"),
     "to_int16": ((True, False), "the port's values are f32, bool and "
                  "int32"),
-    "long_loop": ((True, False), "a launch carries at most 32 float "
-                  "constants (kMaxParams of csrc/fused_step.cu) and the "
-                  "unrolled loop has one a step; the TPU kernel's "
-                  "fori_loop keeps one"),
 }
 
 _OUT_OF_INT32 = 2.0 ** 31
@@ -886,6 +886,9 @@ def _jax_phase34(label):
     if label == "dynamic_logit":
         def loglik(x, y):
             return gj.bernoulli.logpdf(y > 0.5, x)
+    elif label == "lambert_w":
+        def loglik(x, y):
+            return gj.lambert_w_normal.logpdf(y, x, E.LW_SCALE, E.LW_TAIL)
     else:
         step, scale = E.QUANT_STEP, E.QUANT_SCALE
 
@@ -895,7 +898,8 @@ def _jax_phase34(label):
     return propagate, loglik
 
 
-@pytest.mark.parametrize("label", ["dynamic_logit", "quantised"])
+@pytest.mark.parametrize("label", ["dynamic_logit", "quantised",
+                                   "lambert_w"])
 def test_phase_34_models_match_the_jax_fused_filter(label):
     """The port's fused filter (its plain step on the CPU) and the JAX
     package's at 4096 particles x 32 steps (its jnp reference: 4096 is
@@ -903,9 +907,11 @@ def test_phase_34_models_match_the_jax_fused_filter(label):
     means within 4 standard errors of their difference."""
     n, t, keys = 4096, 32, 16
     build = {"dynamic_logit": E.build_dynamic_logit,
-             "quantised": E.build_quantised}[label]
+             "quantised": E.build_quantised,
+             "lambert_w": E.build_lambert_w}[label]
     ys = {"dynamic_logit": E.dynamic_logit_observations,
-          "quantised": E.quantised_observations}[label](t)
+          "quantised": E.quantised_observations,
+          "lambert_w": E.lambert_w_observations}[label](t)
     sd0 = E.AR_SIGMA / math.sqrt(1 - E.AR_PHI ** 2)
     jpf = jax_fused_particle_filter(
         lambda k: sd0 * jax.random.normal(k, (n,)), *_jax_phase34(label), n)
